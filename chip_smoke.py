@@ -1,0 +1,331 @@
+#!/usr/bin/env python3
+"""Chip smoke test of the PyTorch/CUDA port (neutts_tpu_torch) on one GPU.
+
+    python3 chip_smoke.py
+
+Phases (any failure exits non-zero; nothing is caught and passed over):
+  1. the card: nvidia-smi name and power limit, TF32 off (the codec's f32
+     convolutions would otherwise run in TF32 through cuDNN);
+  2. build every CUDA kernel of the port from csrc/ (one nvcc per source);
+  3. each kernel against its plain PyTorch version at the Air shapes of the
+     main path: max error vs tolerance, kernel / plain / library times and
+     the card's bound for the same work; then the whole backbone on the GPU
+     against the CPU (plain versions) on a small f32 model;
+  4. main path, W8A8: NeuTTS.initialize_random(AIR, CODEC, quantize="int8")
+     with an int8 KV cache, infer_batch over 8 prompts (seeded random
+     weights, sampling constrained to speech tokens) — all four kernels;
+  5. main path, default: bf16 weights and KV cache, one infer — both
+     attention kernels.
+The line before the last is a JSON object {"kernels": [...]}; the last is
+{"ok": true, "device": {...}}.
+It exits non-zero without a result when no CUDA device is present or when
+run without the rest of the repository.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM: 80 GB HBM3
+PEAK_BF16 = 989e12  # dense tensor-core bf16 flop/s
+PEAK_INT8 = 1979e12  # dense tensor-core int8 op/s
+
+
+def require(cond: bool, msg: str) -> None:
+    if not cond:
+        raise RuntimeError(f"chip_smoke: {msg}")
+
+
+def gpu_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        check=True, capture_output=True, text=True,
+    ).stdout.strip()
+    return out.splitlines()[0]
+
+
+def bound(nbytes: float, ops: float, peak: float):
+    """Least time in ms for the work (bytes over HBM rate vs ops over peak)."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / peak * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(ROOT))
+    import numpy as np
+
+    from neutts_tpu_torch import NeuTTS, config
+    from neutts_tpu_torch.models import backbone as bb
+    from neutts_tpu_torch.models.checkpoint import tree_to
+    from neutts_tpu_torch.ops import _build
+    from neutts_tpu_torch.ops import attention as attn
+    from neutts_tpu_torch.ops import mlp as mlp_ops
+    from neutts_tpu_torch.runtime import decode as dec
+
+    t_start = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    report: dict = {"phases": {}}
+
+    # --- 1. the card ---------------------------------------------------------------
+    smi = gpu_line()
+    name = torch.cuda.get_device_name(0)
+    print(f"[1] gpu: {smi} | torch {torch.__version__} cuda {torch.version.cuda} | {name}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    report["gpu"] = smi
+
+    # --- 2. build --------------------------------------------------------------------
+    build_s = _build.build_all()
+    for src in _build.SOURCES:
+        _build.library(src)
+    print(f"[2] kernels built in {build_s:.1f} s ({', '.join(_build.SOURCES)})")
+    for log in sorted(_build.BUILD_DIR.glob("*.log")):
+        for line in log.read_text().splitlines():
+            if "registers" in line or "spill" in line and "0 bytes spill" not in line:
+                print(f"    {log.stem}: {line.strip()}")
+    report["build_s"] = build_s
+
+    # --- 3. kernels against their plain versions ---------------------------------------
+    def time_ms(fn, iters):
+        for i in range(3):
+            fn(i)
+        torch.cuda.synchronize()
+        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        s.record()
+        for i in range(iters):
+            fn(i)
+        e.record()
+        torch.cuda.synchronize()
+        return s.elapsed_time(e) / iters
+
+    gen = torch.Generator(device=dev).manual_seed(1234)
+
+    def randn(*shape, dtype=torch.bfloat16, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(dtype)
+
+    cfg = config.AIR
+    B, K, G, D, L = 8, cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, cfg.head_dim, cfg.n_layers
+    H = K * G
+    results: dict = {}
+
+    def record(key, got, want, tol, ms, plain_ms, library_ms, nbytes, ops, peak, replaces,
+               source):
+        err = float((got.float() - want.float()).abs().max())
+        bms, by = bound(nbytes, ops, peak)
+        results[key] = {
+            "name": key, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": 0, "max_abs_err": err, "tol": tol, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bms, "bound_by": by, "library_ms": library_ms,
+        }
+        lib = "n/a" if library_ms is None else f"{library_ms:.4f}"
+        print(f"[3] {key}: max_abs_err {err:.3e} (tol {tol:.3e}) | ms {ms:.4f} | "
+              f"plain {plain_ms:.4f} | library {lib} | bound {bms:.4f} ({by})")
+        require(np.isfinite(err) and err <= tol, f"{key} disagrees with its plain version")
+
+    # decode attention over the stacked Air cache, ragged rows
+    T = 1024
+    lens = torch.tensor([1000, 1024, 800, 960, 1024, 700, 1010, 900], dtype=torch.int32,
+                        device=dev)
+    pad = torch.tensor([0, 5, 13, 64, 0, 100, 7, 31], dtype=torch.int32, device=dev)
+    live = int((lens - pad).sum())
+    q = randn(B, K, G, D)
+    tmask = torch.arange(T, device=dev)
+    sdpa_mask = ((tmask[None] < lens[:, None]) & (tmask[None] >= pad[:, None]))[:, None, None]
+    qs = q.reshape(B, 1, H, D).transpose(1, 2)
+    for mode in ("bf16", "int8"):
+        ck, cv = randn(L, B, T, K * D), randn(L, B, T, K * D)
+        ks = vs = None
+        if mode == "int8":
+            (ck, ks), (cv, vs) = bb.quantize_kv(ck), bb.quantize_kv(cv)
+        args = lambda i: (q, ck, cv, i % L, lens, pad, ks, vs)  # noqa: E731
+        got = attn.decode_attention(*args(L // 2))
+        want = attn.decode_attention_plain(*args(L // 2))
+        ms = time_ms(lambda i: attn.decode_attention(*args(i)), 200)
+        plain_ms = time_ms(lambda i: attn.decode_attention_plain(*args(i)), 10)
+        # library: masked SDPA on one layer (bf16; int8 dequantized outside the timing)
+        lk = ck[L // 2].float() * ks[L // 2][..., None] if mode == "int8" else ck[L // 2]
+        lv = cv[L // 2].float() * vs[L // 2][..., None] if mode == "int8" else cv[L // 2]
+        lk = lk.to(torch.bfloat16).reshape(B, T, K, D).transpose(1, 2).repeat_interleave(G, 1)
+        lv = lv.to(torch.bfloat16).reshape(B, T, K, D).transpose(1, 2).repeat_interleave(G, 1)
+        lib_ms = time_ms(lambda i: torch.nn.functional.scaled_dot_product_attention(
+            qs, lk, lv, attn_mask=sdpa_mask), 200)
+        esz = 1 if mode == "int8" else 2
+        nbytes = 2 * B * H * D * 2 + 2 * live * K * D * esz + 8 * B
+        if mode == "int8":
+            nbytes += 2 * live * 4
+        record(f"decode_attention_{mode}", got, want, 2e-2, ms, plain_ms, lib_ms, nbytes,
+               4.0 * H * D * live, PEAK_BF16, "neutts_tpu/ops/attention.py:99",
+               "neutts_tpu_torch/csrc/decode_attention.cu")
+        del ck, cv, lk, lv
+
+    # prefill attention, B = 8, S = 512, ragged left pads
+    S = 512
+    pads = torch.tensor([0, 3, 100, 255, 511, 64, 17, 200], dtype=torch.int32, device=dev)
+    pq, pk, pv = randn(B, S, H, D), randn(B, S, K, D), randn(B, S, K, D)
+    got = attn.prefill_attention(pq, pk, pv, pads)
+    want = attn.prefill_attention_plain(pq, pk, pv, pads)
+    ms = time_ms(lambda i: attn.prefill_attention(pq, pk, pv, pads), 50)
+    plain_ms = time_ms(lambda i: attn.prefill_attention_plain(pq, pk, pv, pads), 5)
+    idx = torch.arange(S, device=dev)
+    pmask = ((idx[None, None, :] <= idx[None, :, None])
+             & (idx[None, None, :] >= pads[:, None, None]))[:, None]
+    lq = pq.transpose(1, 2)
+    lk = pk.transpose(1, 2).repeat_interleave(G, 1)
+    lv = pv.transpose(1, 2).repeat_interleave(G, 1)
+    lib_ms = time_ms(lambda i: torch.nn.functional.scaled_dot_product_attention(
+        lq, lk, lv, attn_mask=pmask), 50)
+    m = (S - pads).double()
+    pairs = float((m * (m + 1) / 2).sum())
+    record("prefill_attention", got, want, 2e-2, ms, plain_ms, lib_ms,
+           2 * B * S * H * D * 2 + 2 * B * S * K * D * 2 + 4 * B, 4.0 * H * D * pairs,
+           PEAK_BF16, "neutts_tpu/ops/attention.py:1525",
+           "neutts_tpu_torch/csrc/prefill_attention.cu")
+    del pq, pk, pv, lq, lk, lv
+
+    # W8A8 projections at M = 4096 prompt tokens (B = 8 x a 512 bucket)
+    M, Dm, Fm, N = 4096, cfg.hidden_size, cfg.intermediate_size, cfg.q_dim + 2 * cfg.kv_dim
+    x = randn(M, Dm, scale=0.5)
+    nw = (1.0 + 0.1 * randn(Dm, dtype=torch.float32)).to(torch.bfloat16)
+    wqkv = bb.quantize_weight(randn(Dm, N, dtype=torch.float32, scale=Dm**-0.5))
+    bias = randn(N, dtype=torch.float32, scale=0.05)
+    qargs = (x, nw, wqkv["q"], wqkv["s"], bias)
+    got = mlp_ops.fused_qkv(*qargs)
+    want = mlp_ops.fused_qkv_plain(*qargs)
+    ms = time_ms(lambda i: mlp_ops.fused_qkv(*qargs), 20)
+    plain_ms = time_ms(lambda i: mlp_ops.fused_qkv_plain(*qargs), 5)
+    record("fused_qkv", got, want, 2e-2 * float(want.float().abs().max()), ms, plain_ms, None,
+           M * Dm * 2 + Dm * N + 2 * N * 4 + Dm * 2 + M * N * 2, 2.0 * M * Dm * N, PEAK_INT8,
+           "neutts_tpu/ops/mlp.py:234", "neutts_tpu_torch/csrc/w8a8.cu")
+    wg, wu = (bb.quantize_weight(randn(Dm, Fm, dtype=torch.float32, scale=Dm**-0.5))
+              for _ in range(2))
+    wd = bb.quantize_weight(randn(Fm, Dm, dtype=torch.float32, scale=Fm**-0.5))
+    margs = (x, nw, wg["q"], wg["s"], wu["q"], wu["s"], wd["q"], wd["s"])
+    got = mlp_ops.fused_mlp(*margs)
+    want = mlp_ops.fused_mlp_plain(*margs)
+    ms = time_ms(lambda i: mlp_ops.fused_mlp(*margs), 10)
+    plain_ms = time_ms(lambda i: mlp_ops.fused_mlp_plain(*margs), 3)
+    record("fused_mlp", got, want, 3e-2 * float(want.float().abs().max()), ms, plain_ms, None,
+           2 * M * Dm * 2 + 3 * Dm * Fm + (2 * Fm + Dm) * 4 + Dm * 2, 6.0 * M * Dm * Fm,
+           PEAK_INT8, "neutts_tpu/ops/mlp.py:103", "neutts_tpu_torch/csrc/w8a8.cu")
+    del x, wqkv, wg, wu, wd, got, want
+    torch.cuda.empty_cache()
+
+    # the whole backbone, GPU (kernels) against CPU (plain versions), small f32 model
+    tiny = config.TINY
+    p_cpu = bb.init_params(tiny, seed=3, device="cpu")
+    p_gpu = tree_to(p_cpu, dev)
+    prompts = [[5, 6, 7, 8, 9, 10, 11, 12], [13, 14, 15]]
+    worst = 0.0
+    for kv in ("float32", "int8"):
+        c = tiny.scaled(kv_dtype=kv)
+        outs = []
+        for d, p in (("cpu", p_cpu), (dev, p_gpu)):
+            toks, plens = dec.pad_prompts(prompts, pad_id=0, bucket=16, device=d)
+            cache = bb.KVCache.create(c, 2, max_len=32, device=d, dtype=torch.float32)
+            lg, cache = bb.prefill(c, p, toks, plens, cache)
+            seq = [lg.float().cpu()]
+            padv = (16 - plens).to(torch.int32)
+            for s in range(4):
+                tok = torch.tensor([20 + s, 30 + s], dtype=torch.int32, device=d)
+                lg, cache = bb.decode_step(c, p, tok, cache, 16 + s, padv)
+                seq.append(lg.float().cpu())
+            outs.append(torch.stack(seq))
+        worst = max(worst, float((outs[0] - outs[1]).abs().max()))
+    print(f"[3] backbone TINY f32, GPU kernels vs CPU plain: max logit diff {worst:.3e} "
+          "(tol 1e-3)")
+    require(worst <= 1e-3, "TINY backbone on the GPU disagrees with the CPU")
+    report["tiny_backbone_max_diff"] = worst
+
+    # --- 4. main path, W8A8 ------------------------------------------------------------
+    codes = np.load(ROOT / "samples" / "demo_codes.npy").astype(np.int32)
+    ref_text = (ROOT / "samples" / "demo.txt").read_text().strip()
+    texts = [
+        "Hello there, this is a test of the port.",
+        "The quick brown fox jumps over the lazy dog.",
+        "Short one.",
+        "Synthesis on the graphics card, one batch of eight.",
+        "Every kernel on this path was written by hand.",
+        "Random weights still make codes to vocode.",
+        "How fast does it decode?",
+        "A last sentence, for the eighth row of the batch.",
+    ]
+    refs = [codes[: len(codes) - 6 * i] for i in range(len(texts))]
+
+    def run_path(label, tts, batch):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        wavs = tts.infer_batch(texts[:batch], refs[:batch], [ref_text] * batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = dict(_build.launches)
+        st = tts.last_stats
+        require(len(wavs) == batch, f"{label}: {len(wavs)} waveforms for {batch} prompts")
+        for w, n in zip(wavs, st["n_codes"]):
+            require(isinstance(w, np.ndarray) and w.dtype == np.float32, f"{label}: dtype")
+            require(n > 0 and w.shape == (n * 480,), f"{label}: length {w.shape} vs {n} codes")
+            require(bool(np.isfinite(w).all()), f"{label}: non-finite samples")
+        steps = st["steps"]
+        tok_s = batch * (steps - 1) / st["decode_s"]
+        info = {
+            "batch": batch, "bucket": st["bucket"], "decode_steps": steps,
+            "n_codes": st["n_codes"], "prefill_ms": st["prefill_s"] * 1e3,
+            "decode_s": st["decode_s"], "decode_tok_s": tok_s,
+            "decode_ms_per_step": st["decode_s"] * 1e3 / max(steps - 1, 1),
+            "vocode_watermark_ms": st["vocode_s"] * 1e3, "wall_s": wall,
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, "launches": counts,
+        }
+        print(f"[{label}] bucket {st['bucket']} x {batch} | prefill {info['prefill_ms']:.1f} ms"
+              f" | decode {steps - 1} steps, {info['decode_ms_per_step']:.2f} ms/step, "
+              f"{tok_s:.1f} tok/s | vocode+watermark {info['vocode_watermark_ms']:.1f} ms | "
+              f"wall {wall:.1f} s | peak {info['peak_mem_gb']:.1f} GB | launches {counts}")
+        return info
+
+    layout = config.AIR.layout
+    sampling = config.SamplingConfig(max_context=config.AIR.max_context).constrained_to(layout)
+    tts = NeuTTS.initialize_random(config.AIR.scaled(kv_dtype="int8"), config.CODEC, seed=0,
+                                   device=dev, quantize="int8", sampling=sampling)
+    w8 = run_path("4", tts, 8)
+    for k in ("decode_attention_int8", "prefill_attention", "fused_qkv", "fused_mlp"):
+        require(w8["launches"][k] > 0, f"W8A8 main path never launched {k}")
+    report["phases"]["w8a8_infer_batch"] = w8
+    del tts
+    torch.cuda.empty_cache()
+
+    # --- 5. main path, default (bf16 weights, bf16 KV) ---------------------------------
+    tts = NeuTTS.initialize_random(config.AIR, config.CODEC, seed=1, device=dev,
+                                   sampling=sampling)
+    d16 = run_path("5", tts, 1)
+    for k in ("decode_attention_bf16", "prefill_attention"):
+        require(d16["launches"][k] > 0, f"default main path never launched {k}")
+    report["phases"]["bf16_infer"] = d16
+    del tts
+
+    # --- 6. report -----------------------------------------------------------------------
+    for key, r in results.items():
+        r["launches"] = w8["launches"][key] + d16["launches"][key]
+    kernels = {"kernels": list(results.values())}
+    report["total_s"] = time.perf_counter() - t_start
+    print(json.dumps(report))
+    print(f"total {report['total_s']:.1f} s")
+    print(json.dumps(kernels))
+    print(gpu_line())
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

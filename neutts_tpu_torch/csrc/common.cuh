@@ -1,0 +1,60 @@
+// Shared helpers for the port's kernels: element loads/stores by type and
+// warp reductions. Plain C interface everywhere: the wrappers in
+// neutts_tpu_torch/ops pass raw device pointers and a dtype code.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+// dtype codes shared with the Python wrappers (ops/_build.py callers)
+enum DType { DT_F32 = 0, DT_BF16 = 1, DT_I8 = 2 };
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_f32(int8_t x) { return (float)x; }
+
+template <typename T> __device__ __forceinline__ T from_f32(float x);
+template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
+template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);  // round to nearest even, like a torch/XLA cast
+}
+
+// round a float through T and back (a cast to the model dtype)
+template <typename T> __device__ __forceinline__ float round_to(float x) {
+  return to_f32(from_f32<T>(x));
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// Block-wide reductions for blockDim.x a multiple of 32 (<= 1024). `scratch`
+// holds 32 floats of shared memory; every thread gets the result.
+__device__ __forceinline__ float block_sum(float v, float* scratch) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int n_warps = blockDim.x >> 5;
+  v = warp_sum(v);
+  __syncthreads();
+  if (lane == 0) scratch[warp] = v;
+  __syncthreads();
+  v = lane < n_warps ? scratch[lane] : 0.f;
+  return warp_sum(v);
+}
+
+__device__ __forceinline__ float block_max(float v, float* scratch) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int n_warps = blockDim.x >> 5;
+  v = warp_max(v);
+  __syncthreads();
+  if (lane == 0) scratch[warp] = v;
+  __syncthreads();
+  v = lane < n_warps ? scratch[lane] : -3.402823466e38f;
+  return warp_max(v);
+}

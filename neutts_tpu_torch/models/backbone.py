@@ -1,0 +1,390 @@
+"""Qwen2.5-style speech-LM backbone in PyTorch (port of
+`neutts_tpu.models.backbone`, inference side).
+
+Parameters are the JAX package's tree as a dict of tensors: per-layer
+weights stacked on a leading layer axis under params["layers"], quantized
+projections as {"q": int8 [.., D, F], "s": f32 [.., F]} dicts, the fused
+int8 QKV copy under "wqkv". Layers run in a Python loop over that axis.
+
+The KV cache keeps the JAX layout, [L, B, T, K*D] values with [L, B, T] f32
+scales in int8 mode, and is written IN PLACE where the JAX code used
+`lax.dynamic_update_slice` on a scan carry. Prompts are left-padded, so
+every row's decode write lands at one shared slot.
+
+Kernels on this path (ops/): `prefill_attention` for every prefill,
+`decode_attention` for every layer of every decode step, and — for int8
+weights at B*S >= FUSED_MIN_M token rows — `fused_qkv` and `fused_mlp`.
+On CPU tensors each of them runs its plain PyTorch version.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Dict, Optional
+
+import torch
+import torch.nn.functional as F
+
+from neutts_tpu_torch.config import BackboneConfig, round_up
+from neutts_tpu_torch.ops import attention as attn_ops
+from neutts_tpu_torch.ops import mlp as mlp_ops
+
+Params = Dict[str, object]
+_PROJ = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def torch_dtype(name: str) -> torch.dtype:
+    return _DTYPES[name]
+
+
+# --- initialisation and quantization -------------------------------------------
+
+
+def init_params(cfg: BackboneConfig, seed: int = 0, device="cuda", dtype=None) -> Params:
+    """Random weights from `seed`, made on `device` (the JAX init's shapes and
+    scales: N(0, 1/fan_in) projections, N(0, 0.02^2) embedding, zero biases,
+    unit norms). The random streams differ from jax.random's."""
+    dtype = dtype or torch_dtype(cfg.dtype)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    D, L = cfg.hidden_size, cfg.n_layers
+    Q, KV, Fd, V = cfg.q_dim, cfg.kv_dim, cfg.intermediate_size, cfg.padded_vocab
+
+    def dense(shape, scale=None):
+        scale = scale if scale is not None else shape[-2] ** -0.5
+        w = torch.randn(shape, generator=gen, device=device, dtype=torch.float32)
+        return (w * scale).to(dtype)
+
+    def const(shape, value):
+        return torch.full(shape, value, device=device, dtype=dtype)
+
+    params: Params = {
+        "embed": dense((V, D), scale=0.02),
+        "layers": {
+            "attn_norm": const((L, D), 1.0),
+            "wq": dense((L, D, Q)),
+            "bq": const((L, Q), 0.0),
+            "wk": dense((L, D, KV)),
+            "bk": const((L, KV), 0.0),
+            "wv": dense((L, D, KV)),
+            "bv": const((L, KV), 0.0),
+            "wo": dense((L, Q, D)),
+            "mlp_norm": const((L, D), 1.0),
+            "w_gate": dense((L, D, Fd)),
+            "w_up": dense((L, D, Fd)),
+            "w_down": dense((L, Fd, D)),
+        },
+        "final_norm": const((D,), 1.0),
+    }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = dense((D, V), scale=0.02)
+    return params
+
+
+def quantize_weight(w: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """w [..., D, F] -> {"q": int8 [..., D, F], "s": f32 [..., F]}, symmetric
+    per-output-channel scales."""
+    wf = w.float()
+    s = torch.clamp(wf.abs().amax(dim=-2), min=1e-8) / 127.0
+    q = torch.clamp(torch.round(wf / s[..., None, :]), -127, 127).to(torch.int8)
+    return {"q": q, "s": s}
+
+
+def quantize_params(params: Params) -> Params:
+    """int8 W8A8 weights: the seven projections and the LM head become
+    {"q", "s"} dicts; "wqkv" adds the fused [wq | wk | wv] copy with an f32
+    fused bias for the prefill `fused_qkv` kernel. The embedding stays."""
+    layers = dict(params["layers"])
+    for name in _PROJ:
+        layers[name] = quantize_weight(layers[name])
+    layers["wqkv"] = {
+        "q": torch.cat([layers[n]["q"] for n in ("wq", "wk", "wv")], dim=-1).contiguous(),
+        "s": torch.cat([layers[n]["s"] for n in ("wq", "wk", "wv")], dim=-1).contiguous(),
+        "b": torch.cat([params["layers"][n].float() for n in ("bq", "bk", "bv")], dim=-1),
+    }
+    out = dict(params)
+    out["layers"] = layers
+    head = params["lm_head"] if "lm_head" in params else params["embed"].T
+    out["lm_head"] = quantize_weight(head)
+    return out
+
+
+def quantized_weights(params: Params) -> bool:
+    return isinstance(params["layers"]["wq"], dict)
+
+
+def layer_params(params: Params, l: int) -> Params:
+    """Layer l's slice of every stacked weight (views, no copy)."""
+    def take(v):
+        return {k: take(x) for k, x in v.items()} if isinstance(v, dict) else v[l]
+
+    return {name: take(v) for name, v in params["layers"].items()}
+
+
+# --- primitives ----------------------------------------------------------------
+
+
+def _mm(x: torch.Tensor, w) -> torch.Tensor:
+    """Projection dispatch, returns f32.
+
+    Plain tensor w: a matmul in x's dtype (bf16 products accumulate in f32
+    inside the library call; the result is bf16 before the f32 cast, where
+    the JAX dot returned f32 — callers cast back to the model dtype anyway).
+    Quantized dict w: per-token int8 activation quant (amax/127, division),
+    an exact int8 x int8 -> int32 product, dequant by xs * ws."""
+    if isinstance(w, dict):
+        lead = x.shape[:-1]
+        xf = x.reshape(-1, x.shape[-1]).float()
+        xs = torch.clamp(xf.abs().amax(dim=-1, keepdim=True), min=1e-8) / 127.0
+        xq = torch.clamp(torch.round(xf / xs), -127, 127).to(torch.int8)
+        acc = mlp_ops.int8_matmul(xq, w["q"])
+        return (acc.float() * xs * w["s"]).reshape(*lead, -1)
+    return torch.matmul(x, w).float()
+
+
+def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
+    xf = x.float()
+    var = (xf * xf).mean(dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps) * weight.float()).to(x.dtype)
+
+
+def rope_tables(head_dim: int, theta: float, positions: torch.Tensor):
+    """positions [...] int -> (cos, sin) each [..., head_dim/2] f32."""
+    half = head_dim // 2
+    ar = torch.arange(half, dtype=torch.float32, device=positions.device)
+    freqs = torch.pow(torch.tensor(theta, dtype=torch.float32, device=positions.device), -ar / half)
+    angles = positions.float()[..., None] * freqs
+    return torch.cos(angles), torch.sin(angles)
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """x [..., n_heads, head_dim]; HALF-SPLIT ("rotate_half", HF Qwen2)
+    convention: pairs (i, i + head_dim/2). The codec's RoPE instead rotates
+    interleaved pairs (2i, 2i+1), see models/codec.py."""
+    half = x.shape[-1] // 2
+    x1, x2 = x[..., :half], x[..., half:]
+    c = cos[..., None, :].to(x.dtype)
+    s = sin[..., None, :].to(x.dtype)
+    return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1)
+
+
+def _logits(cfg: BackboneConfig, params: Params, x: torch.Tensor, trim: bool = True):
+    """LM head. trim=True: exact f32 logits over the real vocab [B, vocab].
+    trim=False: the padded width, in cfg.logits_dtype (pad ids are masked
+    among the sampling candidates)."""
+    head = params["lm_head"] if "lm_head" in params else params["embed"].T
+    V = cfg.vocab_size
+    if isinstance(head, dict):
+        if trim:  # the padded product, sliced: `_int_mm` needs N % 8 == 0
+            return _mm(x, head)[:, :V]
+        return _mm(x, head).to(torch_dtype(cfg.logits_dtype))
+    if trim:
+        return torch.matmul(x, head[:, :V]).float()
+    return torch.matmul(x, head).to(torch_dtype(cfg.logits_dtype))
+
+
+def add_speech_head(cfg: BackboneConfig, params: Params) -> Params:
+    """Attach a pre-sliced speech-vocab head (EOS then the speech codes,
+    padded to a multiple of 256 columns) for constrained decode."""
+    if "lm_head_speech" in params:
+        return params
+    lay = cfg.layout
+    lo = lay.speech_gen_end
+    assert lay.speech_base == lo + 1, "speech head requires EOS right before the speech codes"
+    width = cfg.vocab_size - lo
+    extra = round_up(width, 256) - width
+    head = params["lm_head"] if "lm_head" in params else params["embed"].T
+    out = dict(params)
+    if isinstance(head, dict):
+        out["lm_head_speech"] = {
+            "q": F.pad(head["q"][:, lo : lo + width], (0, extra)).contiguous(),
+            "s": F.pad(head["s"][lo : lo + width], (0, extra)),
+        }
+    else:
+        out["lm_head_speech"] = F.pad(head[:, lo : lo + width], (0, extra)).contiguous()
+    return out
+
+
+def _logits_speech(cfg: BackboneConfig, params: Params, x: torch.Tensor):
+    """Speech-head logits [B, padded width] in cfg.logits_dtype; column 0
+    is EOS, column 1 + c is speech code c."""
+    head = params["lm_head_speech"]
+    if isinstance(head, dict):
+        return _mm(x, head).to(torch_dtype(cfg.logits_dtype))
+    return torch.matmul(x, head).to(torch_dtype(cfg.logits_dtype))
+
+
+# --- KV cache ------------------------------------------------------------------
+
+
+@dataclass
+class KVCache:
+    """Preallocated cache: k/v [L, B, T, K*D]; in int8 mode (cfg.kv_dtype ==
+    "int8") int8 values with per-token symmetric f32 scales [L, B, T]."""
+
+    k: torch.Tensor
+    v: torch.Tensor
+    k_scale: Optional[torch.Tensor] = None
+    v_scale: Optional[torch.Tensor] = None
+
+    @staticmethod
+    def create(cfg: BackboneConfig, batch: int, max_len: Optional[int] = None,
+               device="cuda", dtype=None) -> "KVCache":
+        T = max_len or cfg.max_context
+        shape = (cfg.n_layers, batch, T, cfg.n_kv_heads * cfg.head_dim)
+        if cfg.kv_dtype == "int8":
+            sshape = (cfg.n_layers, batch, T)
+            return KVCache(
+                k=torch.zeros(shape, dtype=torch.int8, device=device),
+                v=torch.zeros(shape, dtype=torch.int8, device=device),
+                k_scale=torch.zeros(sshape, dtype=torch.float32, device=device),
+                v_scale=torch.zeros(sshape, dtype=torch.float32, device=device),
+            )
+        if cfg.kv_dtype in ("int4", "auto"):
+            raise NotImplementedError(
+                f"kv_dtype={cfg.kv_dtype!r}: the int4 KV cache comes in a later slice of "
+                "the PyTorch port; use 'bfloat16' or 'int8'")
+        dtype = dtype or torch_dtype(cfg.dtype)
+        return KVCache(k=torch.zeros(shape, dtype=dtype, device=device),
+                       v=torch.zeros(shape, dtype=dtype, device=device))
+
+    @property
+    def quantized(self) -> bool:
+        return self.k_scale is not None
+
+    @property
+    def max_len(self) -> int:
+        return self.k.shape[2]
+
+
+def quantize_kv(x: torch.Tensor):
+    """x [..., KD] -> (int8 values [..., KD], f32 scales [...])."""
+    xf = x.float()
+    scale = torch.clamp(xf.abs().amax(dim=-1), min=1e-8) / 127.0
+    q = torch.clamp(torch.round(xf / scale[..., None]), -127, 127)
+    return q.to(torch.int8), scale
+
+
+def write_kv_token(cache: KVCache, kf: torch.Tensor, vf: torch.Tensor, l: int,
+                   cur_index: int) -> None:
+    """Write one token's K/V ([B, KD] each) at slot `cur_index` of layer l,
+    in place (quantized per token in int8 mode)."""
+    if cache.quantized:
+        kq, ks = quantize_kv(kf)
+        vq, vs = quantize_kv(vf)
+        cache.k[l, :, cur_index] = kq
+        cache.v[l, :, cur_index] = vq
+        cache.k_scale[l, :, cur_index] = ks
+        cache.v_scale[l, :, cur_index] = vs
+    else:
+        cache.k[l, :, cur_index] = kf.to(cache.k.dtype)
+        cache.v[l, :, cur_index] = vf.to(cache.v.dtype)
+
+
+# --- blocks --------------------------------------------------------------------
+
+
+def _qkv(cfg: BackboneConfig, lp: Params, h, cos, sin):
+    """h [B, S, D] -> q [B,S,H,Dh], k/v [B,S,K,Dh] with RoPE on q and k."""
+    B, S, _ = h.shape
+    q = _mm(h, lp["wq"]).to(h.dtype) + lp["bq"]
+    k = _mm(h, lp["wk"]).to(h.dtype) + lp["bk"]
+    v = _mm(h, lp["wv"]).to(h.dtype) + lp["bv"]
+    q = apply_rope(q.reshape(B, S, cfg.n_heads, cfg.head_dim), cos, sin)
+    k = apply_rope(k.reshape(B, S, cfg.n_kv_heads, cfg.head_dim), cos, sin)
+    return q, k, v.reshape(B, S, cfg.n_kv_heads, cfg.head_dim)
+
+
+def _mlp(cfg: BackboneConfig, lp: Params, x: torch.Tensor) -> torch.Tensor:
+    B, S, D = x.shape
+    if isinstance(lp["w_gate"], dict) and B * S >= mlp_ops.FUSED_MIN_M:
+        y = mlp_ops.fused_mlp(
+            x.reshape(B * S, D), lp["mlp_norm"],
+            lp["w_gate"]["q"], lp["w_gate"]["s"], lp["w_up"]["q"], lp["w_up"]["s"],
+            lp["w_down"]["q"], lp["w_down"]["s"], eps=cfg.rms_norm_eps,
+        )
+        return y.reshape(B, S, D)
+    h = rms_norm(x, lp["mlp_norm"], cfg.rms_norm_eps)
+    ff = (F.silu(_mm(h, lp["w_gate"])) * _mm(h, lp["w_up"])).to(x.dtype)
+    return x + _mm(ff, lp["w_down"]).to(x.dtype)
+
+
+def _block_fresh(cfg: BackboneConfig, lp: Params, x, cos, sin, pads):
+    """Transformer block over a fresh left-padded window (prefill).
+    pads: [B] int32 left-pad counts. Returns (x_out, k, v)."""
+    B, S, D = x.shape
+    if "wqkv" in lp and B * S >= mlp_ops.FUSED_MIN_M:
+        flat = mlp_ops.fused_qkv(
+            x.reshape(B * S, D), lp["attn_norm"], lp["wqkv"]["q"], lp["wqkv"]["s"],
+            lp["wqkv"]["b"], eps=cfg.rms_norm_eps,
+        ).reshape(B, S, -1)
+        Qd, KVd = cfg.q_dim, cfg.kv_dim
+        q = apply_rope(flat[..., :Qd].reshape(B, S, cfg.n_heads, cfg.head_dim), cos, sin)
+        k = apply_rope(flat[..., Qd : Qd + KVd].reshape(B, S, cfg.n_kv_heads, cfg.head_dim),
+                       cos, sin)
+        v = flat[..., Qd + KVd :].reshape(B, S, cfg.n_kv_heads, cfg.head_dim)
+    else:
+        h = rms_norm(x, lp["attn_norm"], cfg.rms_norm_eps)
+        q, k, v = _qkv(cfg, lp, h, cos, sin)
+    attn = attn_ops.prefill_attention(q.contiguous(), k.contiguous(), v.contiguous(), pads)
+    x = x + _mm(attn.reshape(B, S, cfg.q_dim), lp["wo"]).to(x.dtype)
+    return _mlp(cfg, lp, x), k, v
+
+
+def prefill(cfg: BackboneConfig, params: Params, tokens: torch.Tensor,
+            prompt_lens: torch.Tensor, cache: KVCache, speech_head: bool = False):
+    """Left-padded prompts [B, Lp] (true lengths prompt_lens [B]) -> last
+    position logits [B, V]; writes slots [0, Lp) of `cache` in place."""
+    B, Lp = tokens.shape
+    dev = tokens.device
+    pad = (Lp - prompt_lens).to(torch.int32)
+    idx = torch.arange(Lp, dtype=torch.int32, device=dev)
+    positions = torch.clamp(idx[None, :] - pad[:, None], min=0)
+    cos, sin = rope_tables(cfg.head_dim, cfg.rope_theta, positions)
+    x = params["embed"].to(torch_dtype(cfg.dtype))[tokens.long()]
+    for l in range(cfg.n_layers):
+        x, k, v = _block_fresh(cfg, layer_params(params, l), x, cos, sin, pad)
+        kf = k.reshape(B, Lp, -1)
+        vf = v.reshape(B, Lp, -1)
+        if cache.quantized:
+            kq, ks = quantize_kv(kf)
+            vq, vs = quantize_kv(vf)
+            cache.k[l, :, :Lp] = kq
+            cache.v[l, :, :Lp] = vq
+            cache.k_scale[l, :, :Lp] = ks
+            cache.v_scale[l, :, :Lp] = vs
+        else:
+            cache.k[l, :, :Lp] = kf.to(cache.k.dtype)
+            cache.v[l, :, :Lp] = vf.to(cache.v.dtype)
+    x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
+    if speech_head:
+        return _logits_speech(cfg, params, x[:, -1, :]), cache
+    return _logits(cfg, params, x[:, -1, :]), cache
+
+
+def decode_step(cfg: BackboneConfig, params: Params, token: torch.Tensor, cache: KVCache,
+                cur_index: int, pad: torch.Tensor, trim_logits: bool = True,
+                speech_head: bool = False):
+    """One decode step: feeds token [B] at cache slot `cur_index` (written
+    first, in place), attends [pad, cur_index]; returns (logits [B, V], cache)."""
+    B = token.shape[0]
+    K, G = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads
+    dev = token.device
+    positions = (cur_index - pad)[:, None]
+    cos, sin = rope_tables(cfg.head_dim, cfg.rope_theta, positions)
+    lens = torch.full((B,), cur_index + 1, dtype=torch.int32, device=dev)
+    x = params["embed"].to(torch_dtype(cfg.dtype))[token.long()[:, None]]
+    for l in range(cfg.n_layers):
+        lp = layer_params(params, l)
+        h = rms_norm(x, lp["attn_norm"], cfg.rms_norm_eps)
+        q, k, v = _qkv(cfg, lp, h, cos, sin)
+        write_kv_token(cache, k[:, 0].reshape(B, -1), v[:, 0].reshape(B, -1), l, cur_index)
+        qg = q[:, 0].reshape(B, K, G, cfg.head_dim).contiguous()
+        a = attn_ops.decode_attention(qg, cache.k, cache.v, l, lens, pad,
+                                      cache.k_scale, cache.v_scale)
+        x = x + _mm(a.to(x.dtype).reshape(B, 1, cfg.q_dim), lp["wo"]).to(x.dtype)
+        x = _mlp(cfg, lp, x)
+    x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
+    if speech_head:
+        return _logits_speech(cfg, params, x[:, 0, :]), cache
+    return _logits(cfg, params, x[:, 0, :], trim=trim_logits), cache

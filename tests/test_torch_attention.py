@@ -1,0 +1,175 @@
+"""Port attention (neutts_tpu_torch.ops.attention) against the JAX package.
+
+The plain PyTorch versions run here on the CPU — the same functions the CUDA
+kernels compute, and what chip_smoke.py holds the kernels against on the
+card. They are compared with the TPU kernels in Pallas interpret mode and
+with the XLA oracles, on the same numpy inputs. Cases mirror
+tests/test_attention.py at reduced sizes.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from neutts_tpu.models import backbone as jbb
+from neutts_tpu.ops import attention as jattn
+from neutts_tpu_torch.models import backbone as tbb
+from neutts_tpu_torch.ops import attention as tattn
+
+
+def _mk(B, K, G, T, D, seed=0):
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((B, K, G, D)).astype(np.float32)
+    ck = rng.standard_normal((B, T, K * D)).astype(np.float32)
+    cv = rng.standard_normal((B, T, K * D)).astype(np.float32)
+    return q, ck, cv
+
+
+def _t(a, dtype=None):
+    t = torch.from_numpy(np.asarray(a))
+    return t if dtype is None else t.to(dtype)
+
+
+@pytest.mark.parametrize("lens_pad", [
+    ([256, 256], [0, 0]),
+    ([257 - 64, 100], [0, 3]),  # ragged rows crossing tile boundaries
+    ([256, 7], [5, 0]),
+    ([1, 1], [0, 0]),           # single-slot attention
+])
+def test_decode_f32_matches_kernel_and_oracle(lens_pad):
+    """f32 cache: plain == XLA oracle and == Pallas kernel (interpret) to
+    2e-5 (f32 summation order only)."""
+    B, K, G, T, D = 2, 2, 7, 256, 64
+    q, ck, cv = _mk(B, K, G, T, D)
+    lens, pad = np.asarray(lens_pad[0], np.int32), np.asarray(lens_pad[1], np.int32)
+    got = tattn.decode_attention(_t(q), _t(ck)[None], _t(cv)[None], 0, _t(lens), _t(pad))
+    want = jattn.decode_attention_xla(jnp.asarray(q), jnp.asarray(ck), jnp.asarray(cv),
+                                      jnp.asarray(lens), jnp.asarray(pad))
+    kern = jattn.decode_attention(jnp.asarray(q), jnp.asarray(ck), jnp.asarray(cv),
+                                  jnp.asarray(lens), jnp.asarray(pad), block_t=128,
+                                  interpret=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-5, atol=2e-5)
+    np.testing.assert_allclose(got.numpy(), np.asarray(kern), rtol=2e-5, atol=2e-5)
+
+
+def test_decode_bf16_cache():
+    """bf16 q and cache: the port keeps probabilities in f32 where the JAX
+    paths cast them to bf16 before the PV product; bf16 rounding of inputs
+    and output bounds the gap at 2e-2 (as tests/test_attention.py)."""
+    B, K, G, T, D = 2, 2, 7, 256, 64
+    q, ck, cv = _mk(B, K, G, T, D, seed=1)
+    lens, pad = np.asarray([200, 256], np.int32), np.asarray([0, 2], np.int32)
+    jq, jk, jv = (jnp.asarray(a, jnp.bfloat16) for a in (q, ck, cv))
+    got = tattn.decode_attention(
+        _t(q, torch.bfloat16), _t(ck, torch.bfloat16)[None], _t(cv, torch.bfloat16)[None], 0,
+        _t(lens), _t(pad))
+    assert got.dtype == torch.bfloat16
+    for want in (
+        jattn.decode_attention_xla(jq, jk, jv, jnp.asarray(lens), jnp.asarray(pad)),
+        jattn.decode_attention(jq, jk, jv, jnp.asarray(lens), jnp.asarray(pad), block_t=128,
+                               interpret=True),
+    ):
+        np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32),
+                                   rtol=2e-2, atol=2e-2)
+
+
+def test_decode_int8_cache_stacked_layer():
+    """int8 cache with per-token scales, read from layer 1 of a stacked
+    [L, B, T, KD] cache: plain == XLA oracle on the dequantized cache to
+    1e-5 (same f32 math), and == the Pallas int8 kernel to 2e-2 (it rounds
+    probabilities to bf16)."""
+    B, K, G, T, D = 2, 2, 7, 256, 64
+    q, ck, cv = _mk(B, K, G, T, D, seed=2)
+    kq, ks = jbb.quantize_kv(jnp.asarray(ck))
+    vq, vs = jbb.quantize_kv(jnp.asarray(cv))
+    lens, pad = np.asarray([150, 256], np.int32), np.asarray([0, 2], np.int32)
+    # the port's own quantize_kv gives the same int8 values and scales
+    tq, tks = tbb.quantize_kv(_t(ck))
+    np.testing.assert_array_equal(tq.numpy(), np.asarray(kq))
+    np.testing.assert_allclose(tks.numpy(), np.asarray(ks), rtol=1e-7)
+    stack = lambda a: np.stack([np.zeros_like(np.asarray(a)), np.asarray(a)])  # noqa: E731
+    got = tattn.decode_attention(
+        _t(q), _t(stack(kq)), _t(stack(vq)), 1, _t(lens), _t(pad),
+        _t(stack(ks)), _t(stack(vs)))
+    deq_k = kq.astype(jnp.float32) * ks[..., None]
+    deq_v = vq.astype(jnp.float32) * vs[..., None]
+    want = jattn.decode_attention_xla(jnp.asarray(q), deq_k, deq_v, jnp.asarray(lens),
+                                      jnp.asarray(pad))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
+    kern = jattn.decode_attention_stacked(
+        jnp.asarray(q), jnp.asarray(stack(kq)), jnp.asarray(stack(vq)), jnp.int32(1),
+        jnp.asarray(lens), jnp.asarray(pad), k_scale=jnp.asarray(stack(ks)),
+        v_scale=jnp.asarray(stack(vs)), block_t=128, interpret=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(kern), rtol=2e-2, atol=2e-2)
+
+
+def test_decode_ignores_tail():
+    """Slots at or beyond lens never reach the output."""
+    B, K, G, T, D = 1, 2, 3, 128, 16
+    q, ck, cv = _mk(B, K, G, T, D, seed=3)
+    lens, pad = _t(np.asarray([40], np.int32)), _t(np.asarray([0], np.int32))
+    base = tattn.decode_attention(_t(q), _t(ck)[None], _t(cv)[None], 0, lens, pad)
+    ck[:, 40:] = 1e6
+    cv[:, 40:] = -1e6
+    got = tattn.decode_attention(_t(q), _t(ck)[None], _t(cv)[None], 0, lens, pad)
+    np.testing.assert_array_equal(got.numpy(), base.numpy())
+
+
+def _prefill_inputs(S, pads, H=14, K=2, D=64, seed=0):
+    rng = np.random.default_rng(seed)
+    B = len(pads)
+    q = rng.standard_normal((B, S, H, D)).astype(np.float32)
+    k = rng.standard_normal((B, S, K, D)).astype(np.float32)
+    v = rng.standard_normal((B, S, K, D)).astype(np.float32)
+    return q, k, v, np.asarray(pads, np.int32)
+
+
+def _dense_mask(S, pads):
+    idx = np.arange(S)
+    mask = (idx[None, None, :] <= idx[None, :, None]) & (idx[None, None, :] >= pads[:, None, None])
+    valid = idx[None, :] >= pads[:, None]
+    return mask, valid
+
+
+@pytest.mark.parametrize("S,pads", [
+    (128, (0, 3, 100, 127)),  # a row that is pad but for its last token
+    (192, (0, 64, 130, 191)),
+])
+def test_prefill_f32_matches_dense(S, pads):
+    """f32: plain == backbone._attend_block_dense on the real rows (1e-5)
+    and zero on the pad rows, where the JAX dense path leaves finite garbage."""
+    q, k, v, padv = _prefill_inputs(S, pads)
+    mask, valid = _dense_mask(S, padv)
+    got = tattn.prefill_attention(_t(q), _t(k), _t(v), _t(padv)).numpy()
+    want = np.asarray(jbb._attend_block_dense(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                              jnp.asarray(mask)))
+    np.testing.assert_allclose(got[valid], want[valid], rtol=1e-5, atol=1e-5)
+    assert not got[~valid].any()
+
+
+def test_prefill_bf16_matches_pallas_kernel():
+    """bf16: plain vs the Pallas prefill kernel (interpret), pad rows zeroed
+    by both. The kernel rounds the normalised probabilities to bf16 before
+    PV, the plain version keeps them f32: 2e-2, as tests/test_attention.py."""
+    S, pads = 256, (0, 3, 100, 255)
+    q, k, v, padv = _prefill_inputs(S, pads, seed=1)
+    jq, jk, jv = (jnp.asarray(a, jnp.bfloat16) for a in (q, k, v))
+    want = jattn.prefill_attention(jq, jk, jv, jnp.asarray(padv), interpret=True)
+    got = tattn.prefill_attention(_t(q, torch.bfloat16), _t(k, torch.bfloat16),
+                                  _t(v, torch.bfloat16), _t(padv))
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32),
+                               rtol=2e-2, atol=2e-2)
+
+
+def test_dispatch_is_by_device():
+    """A CPU tensor takes the plain version; the kernel path is reached only
+    for CUDA tensors (and then launches or raises, never falls back)."""
+    q, ck, cv = _mk(1, 2, 2, 64, 16)
+    args = (_t(q), _t(ck)[None], _t(cv)[None], 0, _t(np.asarray([10], np.int32)),
+            _t(np.asarray([0], np.int32)))
+    np.testing.assert_array_equal(tattn.decode_attention(*args).numpy(),
+                                  tattn.decode_attention_plain(*args).numpy())
+    with pytest.raises(ValueError):
+        tattn.decode_attention(args[0].to("meta"), *args[1:])
