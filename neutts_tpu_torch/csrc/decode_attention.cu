@@ -8,7 +8,8 @@
 //   out = softmax_t(q . k_t / sqrt(D)) . v_t   over the live slots t in
 //   [pad[b], lens[b]), with an online f32 softmax. The int8 cache holds
 //   per-token symmetric values with f32 scales [L, B, T]: k_t = kq_t * ks_t,
-//   v_t = vq_t * vs_t (dequantized as the tile is loaded).
+//   v_t = vq_t * vs_t. As in the TPU kernel, ks_t is folded into the scores
+//   and vs_t into the probabilities (G multiplies per token instead of D).
 //
 // What bounds it on the H100: bytes. Each (row, KV head) reads its live K/V
 // prefix once (int8: 128 B per token per head pair, bf16: 256 B) and does
@@ -51,6 +52,8 @@ __global__ void __launch_bounds__(THREADS) decode_attention_kernel(
   float* m_s = acc_s + G * D;   // [G] running max
   float* l_s = m_s + G;         // [G] running sum
   float* a_s = l_s + G;         // [G] this tile's rescale factor
+  float* ks_s = a_s + G;        // [BT] int8 mode: per-token K scales
+  float* vs_s = ks_s + BT;      // [BT] int8 mode: per-token V scales
 
   const int b = blockIdx.x / K, h = blockIdx.x % K;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -82,13 +85,16 @@ __global__ void __launch_bounds__(THREADS) decode_attention_kernel(
       if (t < hi) {
         kv = to_f32(kb[(size_t)t * KD + d]);
         vv = to_f32(vb[(size_t)t * KD + d]);
-        if (ksb != nullptr) {
-          kv *= ksb[t];
-          vv *= vsb[t];
-        }
       }
       k_s[tt * DP + d] = kv;
       v_s[tt * D + d] = vv;
+    }
+    if (ksb != nullptr) {
+      for (int tt = tid; tt < BT; tt += THREADS) {
+        const int t = t0 + tt;
+        ks_s[tt] = t < hi ? ksb[t] : 0.f;
+        vs_s[tt] = t < hi ? vsb[t] : 0.f;
+      }
     }
     __syncthreads();
 
@@ -100,6 +106,7 @@ __global__ void __launch_bounds__(THREADS) decode_attention_kernel(
         const float* kr = k_s + tt * DP;
         s = 0.f;
         for (int d = 0; d < D; ++d) s = fmaf(qr[d], kr[d], s);
+        if (ksb != nullptr) s *= ks_s[tt];  // K scale folded into the score
       }
       s_s[i] = s;
     }
@@ -116,7 +123,7 @@ __global__ void __launch_bounds__(THREADS) decode_attention_kernel(
       float sum = 0.f;
       for (int tt = lane; tt < BT; tt += 32) {
         const float p = expf(sr[tt] - m_new);
-        sr[tt] = p;
+        sr[tt] = vsb != nullptr ? p * vs_s[tt] : p;  // V scale folded into p
         sum += p;
       }
       sum = warp_sum(sum);
@@ -149,7 +156,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* ks,
                    const void* vs, const void* lens, const void* pad, void* out,
                    int B, int K, int G, int D, int T, int layer, cudaStream_t st) {
   const size_t smem =
-      sizeof(float) * ((size_t)2 * G * D + BT * (D + 1) + BT * D + G * BT + 3 * G);
+      sizeof(float) * ((size_t)2 * G * D + BT * (D + 1) + BT * D + G * BT + 3 * G + 2 * BT);
   auto kern = decode_attention_kernel<QT, CT>;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);

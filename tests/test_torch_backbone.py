@@ -195,6 +195,17 @@ def test_top_k_support():
     assert picks.issubset(set(range(95, 100))) and len(picks) > 1
 
 
+def test_topk_candidates_match_exact_jax_topk():
+    """The port's torch.topk is the exact top-k: the same candidate set and
+    order as JAX `lax.top_k` (the `exact_topk=True` path; the default
+    `approx_max_k` is TPU-only)."""
+    logits = np.random.default_rng(3).normal(size=(4, 700)).astype(np.float32)
+    tv, ti = torch.topk(torch.from_numpy(logits), 50, dim=-1)
+    jv, ji = jax.lax.top_k(jnp.asarray(logits), 50)
+    np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+    np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
+
+
 def test_min_new_tokens_suppression():
     logits = torch.zeros(2, CFG.padded_vocab)
     logits[:, EOS] = 1e9

@@ -100,3 +100,15 @@ def test_wrappers_raise_on_bad_inputs(dev):
         attn.decode_attention(q, ck, ck, 0, lens, lens * 0)
     with pytest.raises(TypeError):
         attn.decode_attention(q, ck.bfloat16(), ck.bfloat16(), 0, lens.long(), lens * 0)
+
+
+def test_int_mm_row_padding(dev):
+    """Why `int8_matmul` pads: `torch._int_mm` on CUDA refuses M <= 16 (decode
+    runs M = batch); the padded call is exact."""
+    g = torch.Generator(device=dev).manual_seed(7)
+    a = torch.randint(-127, 128, (8, 896), generator=g, device=dev, dtype=torch.int8)
+    b = torch.randint(-127, 128, (896, 128), generator=g, device=dev, dtype=torch.int8)
+    with pytest.raises(RuntimeError):
+        torch._int_mm(a, b)
+    want = (a.double() @ b.double()).to(torch.int32)
+    torch.testing.assert_close(mlp_ops.int8_matmul(a, b), want, rtol=0, atol=0)
