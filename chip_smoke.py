@@ -6,18 +6,24 @@
 Phases (any failure exits non-zero; nothing is caught and passed over):
   1. the card: nvidia-smi name and power limit, TF32 off (the codec's f32
      convolutions would otherwise run in TF32 through cuDNN);
-  2. build every CUDA kernel of the port from csrc/ (one nvcc per source);
+  2. build every CUDA kernel of the port from csrc/ (one nvcc per source,
+     all started together);
   3. each kernel against its plain PyTorch version at the Air shapes of the
-     main path: max error vs tolerance, kernel / plain / library times and
-     the card's bound for the same work; then the whole backbone on the GPU
-     against the CPU (plain versions) on a small f32 model;
+     main paths: max error vs tolerance (exact for the two slot copies),
+     kernel / plain / library times and the card's bound for the same work;
+     then the whole backbone, and a small serving Engine, on the GPU against
+     the CPU (plain versions) on a small f32 model;
   4. main path, W8A8: NeuTTS.initialize_random(AIR, CODEC, quantize="int8")
      with an int8 KV cache, infer_batch over 8 prompts (seeded random
-     weights, sampling constrained to speech tokens) — all four kernels;
-  5. main path, default: bf16 weights and KV cache, one infer — both
-     attention kernels.
-The line before the last is a JSON object {"kernels": [...]}; the last is
-{"ok": true, "device": {...}}.
+     weights, sampling constrained to speech tokens);
+  5. main path, default: bf16 weights and KV cache, one infer;
+  6. serving, W8A8: Engine.run over 320 requests of 380-512 prompt tokens
+     into 128 slots (int8 KV: staged decode, reconcile, scatter-prefill);
+  7. serving, default: bf16 weights and KV, 16 slots, 40 requests.
+Each main path runs with the launch counts set to 0 just before it and read
+just after. Before the last two lines: the report, the nvidia-smi card line
+and the JSON object {"kernels": [...]}; the last line is {"ok": true,
+"device": {...}}. The report also goes to chiprun_out/chip_smoke.json.
 It exits non-zero without a result when no CUDA device is present or when
 run without the rest of the repository.
 """
@@ -71,7 +77,9 @@ def main() -> int:
     from neutts_tpu_torch.ops import _build
     from neutts_tpu_torch.ops import attention as attn
     from neutts_tpu_torch.ops import mlp as mlp_ops
+    from neutts_tpu_torch.runtime import batching
     from neutts_tpu_torch.runtime import decode as dec
+    from neutts_tpu_torch.serving import Engine
 
     t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
@@ -121,7 +129,11 @@ def main() -> int:
 
     def record(key, got, want, tol, ms, plain_ms, library_ms, nbytes, ops, peak, replaces,
                source):
-        err = float((got.float() - want.float()).abs().max())
+        """One kernel's entry; got/want are a tensor or a tuple of tensors,
+        and tol 0 asks for equality."""
+        pairs = list(zip(got, want)) if isinstance(got, tuple) else [(got, want)]
+        err = max(float((a.float() - b.float()).abs().max()) for a, b in pairs)
+        ok = all(torch.equal(a, b) for a, b in pairs) if tol == 0 else np.isfinite(err) and err <= tol
         bms, by = bound(nbytes, ops, peak)
         results[key] = {
             "name": key, "route": "cuda", "source": source, "replaces": replaces,
@@ -129,9 +141,9 @@ def main() -> int:
             "bound_ms": bms, "bound_by": by, "library_ms": library_ms,
         }
         lib = "n/a" if library_ms is None else f"{library_ms:.4f}"
-        print(f"[3] {key}: max_abs_err {err:.3e} (tol {tol:.3e}) | ms {ms:.4f} | "
-              f"plain {plain_ms:.4f} | library {lib} | bound {bms:.4f} ({by})")
-        require(np.isfinite(err) and err <= tol, f"{key} disagrees with its plain version")
+        print(f"[3] {key}: max_abs_err {err:.3e} (tol {tol:.3e}{', exact' if tol == 0 else ''})"
+              f" | ms {ms:.4f} | plain {plain_ms:.4f} | library {lib} | bound {bms:.4f} ({by})")
+        require(ok, f"{key} disagrees with its plain version")
 
     # decode attention over the stacked Air cache, ragged rows
     T = 1024
@@ -221,6 +233,129 @@ def main() -> int:
     del x, wqkv, wg, wu, wd, got, want
     torch.cuda.empty_cache()
 
+    # serving kernels at the W8A8 serving shapes: 128 slots of T = 2304, S = 32
+    Bs, S = 128, 32
+    Ts = batching.slot_cache_len(cfg)
+    KD = K * D
+    rng = np.random.default_rng(0)
+
+    def quantized(*shape):
+        """int8 values and f32 scales of unit-normal K/V rows, one layer at a time."""
+        q8 = torch.empty(shape, dtype=torch.int8, device=dev)
+        sc = torch.empty(shape[:-1], dtype=torch.float32, device=dev)
+        for lyr in range(shape[0]):
+            q8[lyr], sc[lyr] = bb.quantize_kv(randn(*shape[1:]))
+        return q8, sc
+
+    def staging_scales(sc):
+        return torch.nn.functional.pad(sc, (0, attn.SEG_PAD - sc.shape[-1]))
+
+    (ck, ks), (cv, vs) = quantized(L, Bs, Ts, KD), quantized(L, Bs, Ts, KD)
+    (sk8, sks), (sv8, svs) = quantized(L, Bs, S, KD), quantized(L, Bs, S, KD)
+    stag = (sk8, sv8, staging_scales(sks), staging_scales(svs))
+
+    # staged decode attention: ragged settled lengths (multiples of 64 in
+    # [0, 2048], some rows empty), ragged pads, staging step 17
+    step = 17
+    base_np = rng.integers(0, 33, Bs) * 64
+    base_np[:8] = 0
+    pad_np = np.minimum(base_np, rng.integers(0, 200, Bs))
+    base = torch.tensor(base_np, dtype=torch.int32, device=dev)
+    spad = torch.tensor(pad_np, dtype=torch.int32, device=dev)
+    live = int((base_np - pad_np).sum())
+    sq = randn(Bs, K, G, D)
+    sargs = lambda i: (sq, ck, cv, ks, vs, *stag, i % L, step, base, spad)  # noqa: E731
+    got = attn.decode_attention_staged(*sargs(L // 2))
+    want = attn.decode_attention_staged_plain(*sargs(L // 2))
+    ms = time_ms(lambda i: attn.decode_attention_staged(*sargs(i)), 200)
+    plain_ms = time_ms(lambda i: attn.decode_attention_staged_plain(*sargs(i)), 5)
+    # library: masked SDPA over a dequantized bf16 copy of cache + staging
+    # of one layer, made outside the timing
+    lyr = L // 2
+    lk = torch.cat([ck[lyr].float() * ks[lyr][..., None],
+                    stag[0][lyr].float() * stag[2][lyr][:, :S, None]], dim=1)
+    lv = torch.cat([cv[lyr].float() * vs[lyr][..., None],
+                    stag[1][lyr].float() * stag[3][lyr][:, :S, None]], dim=1)
+    lk = lk.to(torch.bfloat16).reshape(Bs, Ts + S, K, D).transpose(1, 2).repeat_interleave(G, 1)
+    lv = lv.to(torch.bfloat16).reshape(Bs, Ts + S, K, D).transpose(1, 2).repeat_interleave(G, 1)
+    tt = torch.arange(Ts + S, device=dev)
+    smask = (((tt[None] < base[:, None]) & (tt[None] >= spad[:, None]))
+             | ((tt[None] >= Ts) & (tt[None] <= Ts + step)))[:, None, None]
+    lq = sq.reshape(Bs, 1, H, D).transpose(1, 2)
+    lib_ms = time_ms(lambda i: torch.nn.functional.scaled_dot_product_attention(
+        lq, lk, lv, attn_mask=smask), 100)
+    n_att = live + Bs * (step + 1)
+    record("decode_attention_staged", got, want, 2e-2, ms, plain_ms, lib_ms,
+           2 * Bs * H * D * 2 + n_att * (2 * KD + 8) + 8 * Bs, 4.0 * H * D * n_att, PEAK_BF16,
+           "neutts_tpu/ops/attention.py:548", "neutts_tpu_torch/csrc/staged_attention.cu")
+    del lk, lv, got, want
+
+    # segment reconcile: about half the rows active, 8-aligned bases
+    bufs = (ck, cv, ks, vs)
+    rbase_np = rng.integers(0, (Ts - S) // 8 + 1, Bs) * 8
+    rbase = torch.tensor(rbase_np, dtype=torch.int32, device=dev)
+    ract_np = rng.random(Bs) < 0.5
+    ract = torch.tensor(ract_np, device=dev)
+    got = attn.reconcile_segment(*(b.clone() for b in bufs), *stag, rbase, ract)
+    want = attn.reconcile_segment_plain(*(b.clone() for b in bufs), *stag, rbase, ract)
+    work = [b.clone() for b in bufs]
+    ms = time_ms(lambda i: attn.reconcile_segment(*work, *stag, rbase, ract), 100)
+    plain_ms = time_ms(lambda i: attn.reconcile_segment_plain(*work, *stag, rbase, ract), 5)
+    # library: scatter_ along time over the [B, S] column index; inactive rows
+    # scatter their own current values (gathered outside the timing)
+    cols = (rbase[:, None] + torch.arange(S, device=dev)).long()
+    idx_v = cols[None, :, :, None].expand(L, Bs, S, KD)
+    idx_s = cols[None].expand(L, Bs, S)
+    keep = ract[None, :, None]
+    src = [torch.where(keep[..., None], stag[0], work[0].gather(2, idx_v)),
+           torch.where(keep[..., None], stag[1], work[1].gather(2, idx_v)),
+           torch.where(keep, stag[2][..., :S], work[2].gather(2, idx_s)),
+           torch.where(keep, stag[3][..., :S], work[3].gather(2, idx_s))]
+
+    def lib_reconcile(i):
+        for w, ix, sr in zip(work, (idx_v, idx_v, idx_s, idx_s), src):
+            w.scatter_(2, ix, sr)
+
+    lib_ms = time_ms(lib_reconcile, 100)
+    n_act = int(ract_np.sum())
+    record("reconcile_segment", got, want, 0, ms, plain_ms, lib_ms,
+           2 * n_act * L * S * (2 * KD + 8) + 5 * Bs, 0.0, PEAK_INT8,
+           "neutts_tpu/ops/attention.py:1039", "neutts_tpu_torch/csrc/slot_copy.cu")
+    del got, want, work, src, idx_v
+
+    # admission write: a group of 64 rows (8 of them group padding that
+    # repeats the last admission), Lp 512, into the 128-slot cache
+    G8, Lp = 64, 512
+    rows = rng.permutation(Bs)[: G8 - 8]
+    slots_np = np.concatenate([rows, np.full(8, rows[-1])]).astype(np.int32)
+    pslots = torch.tensor(slots_np, dtype=torch.int32, device=dev)
+    first = [int(np.flatnonzero(slots_np == s_)[0]) for s_ in slots_np]
+    primary = torch.tensor([f == j for j, f in enumerate(first)], device=dev)
+    (nk8, nks), (nv8, nvs) = quantized(L, G8, Lp, KD), quantized(L, G8, Lp, KD)
+    new = [nk8, nv8, nks, nvs]
+    for a in new:
+        a[:, G8 - 8:] = a[:, G8 - 9: G8 - 8]  # duplicates carry the same row
+    got = attn.scatter_prefill(*(b.clone() for b in bufs), *new, pslots, primary)
+    want = attn.scatter_prefill_plain(*(b.clone() for b in bufs), *new, pslots, primary)
+    work = [b.clone() for b in bufs]
+    ms = time_ms(lambda i: attn.scatter_prefill(*work, *new, pslots, primary), 100)
+    plain_ms = time_ms(lambda i: attn.scatter_prefill_plain(*work, *new, pslots, primary), 5)
+    # library: index_copy_ of the primary rows (selected outside the timing)
+    prim = primary.nonzero()[:, 0]
+    dst_rows = pslots[prim].long()
+    psrc = [a[:, prim] for a in new]
+
+    def lib_prefill(i):
+        for w, sr in zip(work, psrc):
+            w[:, :, :Lp].index_copy_(1, dst_rows, sr)
+
+    lib_ms = time_ms(lib_prefill, 100)
+    record("scatter_prefill", got, want, 0, ms, plain_ms, lib_ms,
+           2 * len(prim) * L * Lp * (2 * KD + 8) + 5 * G8, 0.0, PEAK_INT8,
+           "neutts_tpu/ops/attention.py:1290", "neutts_tpu_torch/csrc/slot_copy.cu")
+    del got, want, work, new, psrc, ck, cv, ks, vs, stag, bufs
+    torch.cuda.empty_cache()
+
     # the whole backbone, GPU (kernels) against CPU (plain versions), small f32 model
     tiny = config.TINY
     p_cpu = bb.init_params(tiny, seed=3, device="cpu")
@@ -246,6 +381,22 @@ def main() -> int:
           "(tol 1e-3)")
     require(worst <= 1e-3, "TINY backbone on the GPU disagrees with the CPU")
     report["tiny_backbone_max_diff"] = worst
+
+    # a small f32 serving Engine, GPU (kernels) against CPU (plain versions)
+    eos_t = tiny.layout.speech_gen_end
+    tprompts = [[3, 1, 4, 1, 5], [9, 2, 6], [2, 7, 1, 8, 2, 8], [11, 12]]
+    for kv in ("int8", "float32"):
+        toks_by_dev = []
+        for d in ("cpu", dev):
+            eng = Engine(tiny.scaled(kv_dtype=kv), p_cpu, eos_id=eos_t, n_slots=2,
+                         sampling=config.SamplingConfig(greedy=True, min_new_tokens=2),
+                         segment_steps=8, device=d)
+            rids = [eng.submit(tp, max_new=24) for tp in tprompts]
+            out = eng.run()
+            toks_by_dev.append([out[r] for r in rids])
+        print(f"[3] serving Engine TINY f32, {kv} KV, GPU vs CPU: greedy tokens equal "
+              f"{toks_by_dev[0] == toks_by_dev[1]}")
+        require(toks_by_dev[0] == toks_by_dev[1], f"TINY Engine ({kv} KV) GPU != CPU tokens")
 
     # --- 4. main path, W8A8 ------------------------------------------------------------
     codes = np.load(ROOT / "samples" / "demo_codes.npy").astype(np.int32)
@@ -313,15 +464,101 @@ def main() -> int:
     report["phases"]["bf16_infer"] = d16
     del tts
 
-    # --- 6. report -----------------------------------------------------------------------
+    # --- 6./7. serving ------------------------------------------------------------------
+    def run_serving(label, bcfg, quantize, n_slots, n_req, budget_lo, budget_hi, seed):
+        lay = bcfg.layout
+        params = bb.init_params(bcfg, seed=seed, device=dev)
+        if quantize:
+            params = bb.quantize_params(params)
+        scfg = config.SamplingConfig(
+            min_new_tokens=budget_hi + 1, max_context=bcfg.max_context).constrained_to(lay)
+        eng = Engine(bcfg, params, eos_id=lay.speech_gen_end, n_slots=n_slots, sampling=scfg,
+                     segment_steps=32, seed=seed, device=dev)
+        del params
+        rs = np.random.default_rng(seed)
+        prompts = [(lay.speech_base + rs.integers(0, lay.codebook_size, int(n))).tolist()
+                   for n in rs.integers(380, 513, n_req)]  # tools/bench_serving.py prompts
+        budgets = [int(b) for b in rs.integers(budget_lo, budget_hi + 1, n_req)]
+        rids = [eng.submit(pr, max_new=bu) for pr, bu in zip(prompts, budgets)]
+        host = {"dispatch_s": 0.0, "collect_s": 0.0, "admit_s": 0.0, "segments": 0}
+
+        def timed(name, fn):
+            def wrapper(*a):
+                t0 = time.perf_counter()
+                out = fn(*a)
+                host[name] += time.perf_counter() - t0
+                return out
+            return wrapper
+
+        eng.step_dispatch = timed("dispatch_s", eng.step_dispatch)
+        eng.step_collect = timed("collect_s", eng.step_collect)
+        eng._admit = timed("admit_s", eng._admit)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        outs = eng.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = dict(_build.launches)
+        st = dict(eng.stats)
+        for rid, bu in zip(rids, budgets):
+            toks = outs[rid]
+            require(len(toks) == bu, f"{label}: request {rid} returned {len(toks)} of {bu}")
+            require(all(lay.speech_base <= t < lay.vocab_size for t in toks),
+                    f"{label}: request {rid} left the speech range")
+        require(st["useful_tokens"] == sum(budgets),
+                f"{label}: useful_tokens {st['useful_tokens']} != {sum(budgets)}")
+        n_seg = st["dispatched_token_slots"] // (32 * n_slots)
+        disp = st["dispatched_token_slots"]
+        info = {
+            "n_slots": n_slots, "requests": n_req, "tokens": sum(budgets), "wall_s": wall,
+            "tok_s": sum(budgets) / wall, "utt_s": n_req / wall, "segments": n_seg,
+            "ms_per_segment": wall * 1e3 / n_seg,
+            "host_dispatch_ms_per_segment": (host["dispatch_s"] - host["admit_s"]) * 1e3 / n_seg,
+            "collect_ms_per_segment": host["collect_s"] * 1e3 / n_seg,
+            "admit_host_ms_total": host["admit_s"] * 1e3,
+            "tax": {k: st[k] / disp for k in ("post_done_token_slots", "empty_token_slots",
+                                              "post_eos_token_slots")},
+            "useful_frac": st["useful_tokens"] / disp, "stats": st,
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, "launches": counts,
+        }
+        print(f"[{label}] {n_req} requests, {sum(budgets)} tokens in {wall:.1f} s: "
+              f"{info['tok_s']:.1f} tok/s, {info['utt_s']:.2f} utt/s | {n_seg} segments, "
+              f"{info['ms_per_segment']:.1f} ms/segment (host dispatch "
+              f"{info['host_dispatch_ms_per_segment']:.1f}, collect wait "
+              f"{info['collect_ms_per_segment']:.1f}) | admission host "
+              f"{info['admit_host_ms_total']:.0f} ms | useful {info['useful_frac']:.3f}, "
+              f"tax {info['tax']} | peak {info['peak_mem_gb']:.1f} GB | launches {counts}")
+        del eng
+        torch.cuda.empty_cache()
+        return info
+
+    s8 = run_serving("6", config.AIR.scaled(kv_dtype="int8"), True, 128, 320, 150, 250, 2)
+    for k in ("decode_attention_staged", "reconcile_segment", "scatter_prefill",
+              "prefill_attention", "fused_qkv", "fused_mlp"):
+        require(s8["launches"][k] > 0, f"W8A8 serving never launched {k}")
+    for k in ("decode_attention_int8", "decode_attention_bf16"):
+        require(s8["launches"][k] == 0, f"W8A8 serving launched {k}")
+    report["phases"]["w8a8_serving"] = s8
+    s16 = run_serving("7", config.AIR, False, 16, 40, 64, 128, 3)
+    require(s16["launches"]["decode_attention_bf16"] > 0, "default serving never ran kernel #1")
+    require(s16["launches"]["decode_attention_staged"] == 0, "default serving ran staged decode")
+    report["phases"]["bf16_serving"] = s16
+
+    # --- report ------------------------------------------------------------------------
+    paths = (w8, d16, s8, s16)
     for key, r in results.items():
-        r["launches"] = w8["launches"][key] + d16["launches"][key]
+        r["launches"] = sum(ph["launches"][key] for ph in paths)
     kernels = {"kernels": list(results.values())}
     report["total_s"] = time.perf_counter() - t_start
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    (out_dir / "chip_smoke.json").write_text(json.dumps({**report, **kernels}, indent=1))
     print(json.dumps(report))
     print(f"total {report['total_s']:.1f} s")
-    print(json.dumps(kernels))
     print(gpu_line())
+    print(json.dumps(kernels))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))
     return 0

@@ -23,13 +23,12 @@
 // This first version is simple: with B = 8 and K = 2 it runs only 16
 // blocks, far too few to pull the card's bandwidth. Splitting the time axis
 // across blocks (split-K flash-decode) is the next step, in a later change.
-// Masked scores use the finite -1e30 as the JAX code does.
-#include "common.cuh"
+// The tile loop lives in flash_decode.cuh, shared with staged_attention.cu.
+#include "flash_decode.cuh"
 
 namespace {
 
-constexpr int BT = 64;        // cache tokens per tile
-constexpr int THREADS = 128;  // 4 warps
+using flash_decode::THREADS;
 
 template <typename QT, typename CT>
 __global__ void __launch_bounds__(THREADS) decode_attention_kernel(
@@ -43,120 +42,22 @@ __global__ void __launch_bounds__(THREADS) decode_attention_kernel(
     QT* __restrict__ out,               // [B, K, G, D]
     int B, int K, int G, int D, int T, int layer) {
   extern __shared__ float smem[];
-  const int DP = D + 1;  // padded K rows: conflict-free score reads
-  float* q_s = smem;            // [G][D], pre-scaled by 1/sqrt(D)
-  float* k_s = q_s + G * D;     // [BT][DP]
-  float* v_s = k_s + BT * DP;   // [BT][D]
-  float* s_s = v_s + BT * D;    // [G][BT] scores, then probabilities
-  float* acc_s = s_s + G * BT;  // [G][D]
-  float* m_s = acc_s + G * D;   // [G] running max
-  float* l_s = m_s + G;         // [G] running sum
-  float* a_s = l_s + G;         // [G] this tile's rescale factor
-  float* ks_s = a_s + G;        // [BT] int8 mode: per-token K scales
-  float* vs_s = ks_s + BT;      // [BT] int8 mode: per-token V scales
-
+  const flash_decode::Smem sm = flash_decode::carve(smem, G, D);
   const int b = blockIdx.x / K, h = blockIdx.x % K;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int KD = K * D;
-  const float scale = 1.0f / sqrtf((float)D);
   const size_t row0 = ((size_t)layer * B + b) * T;  // cache row of slot 0
-  const CT* kb = all_k + row0 * KD + (size_t)h * D;
-  const CT* vb = all_v + row0 * KD + (size_t)h * D;
-  const float* ksb = k_scale ? k_scale + row0 : nullptr;
-  const float* vsb = v_scale ? v_scale + row0 : nullptr;
-  const QT* qb = q + ((size_t)b * K + h) * G * D;
-
-  for (int i = tid; i < G * D; i += THREADS) {
-    q_s[i] = to_f32(qb[i]) * scale;
-    acc_s[i] = 0.f;
-  }
-  for (int g = tid; g < G; g += THREADS) {
-    m_s[g] = -1e30f;
-    l_s[g] = 0.f;
-  }
-  const int lo = pad[b];
-  const int hi = min(lens[b], T);
-  __syncthreads();
-
-  for (int t0 = lo; t0 < hi; t0 += BT) {
-    for (int i = tid; i < BT * D; i += THREADS) {
-      const int tt = i / D, d = i - tt * D, t = t0 + tt;
-      float kv = 0.f, vv = 0.f;
-      if (t < hi) {
-        kv = to_f32(kb[(size_t)t * KD + d]);
-        vv = to_f32(vb[(size_t)t * KD + d]);
-      }
-      k_s[tt * DP + d] = kv;
-      v_s[tt * D + d] = vv;
-    }
-    if (ksb != nullptr) {
-      for (int tt = tid; tt < BT; tt += THREADS) {
-        const int t = t0 + tt;
-        ks_s[tt] = t < hi ? ksb[t] : 0.f;
-        vs_s[tt] = t < hi ? vsb[t] : 0.f;
-      }
-    }
-    __syncthreads();
-
-    for (int i = tid; i < G * BT; i += THREADS) {
-      const int g = i / BT, tt = i - g * BT;
-      float s = -1e30f;
-      if (t0 + tt < hi) {
-        const float* qr = q_s + g * D;
-        const float* kr = k_s + tt * DP;
-        s = 0.f;
-        for (int d = 0; d < D; ++d) s = fmaf(qr[d], kr[d], s);
-        if (ksb != nullptr) s *= ks_s[tt];  // K scale folded into the score
-      }
-      s_s[i] = s;
-    }
-    __syncthreads();
-
-    // online softmax update, one warp per query head
-    for (int g = warp; g < G; g += THREADS / 32) {
-      float* sr = s_s + g * BT;
-      float mx = -1e30f;
-      for (int tt = lane; tt < BT; tt += 32) mx = fmaxf(mx, sr[tt]);
-      mx = warp_max(mx);
-      const float m_old = m_s[g];
-      const float m_new = fmaxf(m_old, mx);
-      float sum = 0.f;
-      for (int tt = lane; tt < BT; tt += 32) {
-        const float p = expf(sr[tt] - m_new);
-        sr[tt] = vsb != nullptr ? p * vs_s[tt] : p;  // V scale folded into p
-        sum += p;
-      }
-      sum = warp_sum(sum);
-      if (lane == 0) {
-        const float alpha = expf(m_old - m_new);
-        a_s[g] = alpha;
-        l_s[g] = l_s[g] * alpha + sum;
-        m_s[g] = m_new;
-      }
-    }
-    __syncthreads();
-
-    for (int i = tid; i < G * D; i += THREADS) {
-      const int g = i / D, d = i - g * D;
-      const float* pr = s_s + g * BT;
-      float o = 0.f;
-      for (int tt = 0; tt < BT; ++tt) o = fmaf(pr[tt], v_s[tt * D + d], o);
-      acc_s[i] = acc_s[i] * a_s[g] + o;
-    }
-    __syncthreads();
-  }
-
-  QT* ob = out + ((size_t)b * K + h) * G * D;
-  for (int i = tid; i < G * D; i += THREADS)
-    ob[i] = from_f32<QT>(acc_s[i] / fmaxf(l_s[i / D], 1e-30f));
+  flash_decode::begin(sm, q + ((size_t)b * K + h) * G * D, G, D);
+  flash_decode::attend(sm, all_k + row0 * KD + (size_t)h * D, all_v + row0 * KD + (size_t)h * D,
+                       k_scale ? k_scale + row0 : nullptr, v_scale ? v_scale + row0 : nullptr,
+                       KD, pad[b], min(lens[b], T), G, D);
+  flash_decode::finish(sm, out + ((size_t)b * K + h) * G * D, G, D);
 }
 
 template <typename QT, typename CT>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* ks,
                    const void* vs, const void* lens, const void* pad, void* out,
                    int B, int K, int G, int D, int T, int layer, cudaStream_t st) {
-  const size_t smem =
-      sizeof(float) * ((size_t)2 * G * D + BT * (D + 1) + BT * D + G * BT + 3 * G + 2 * BT);
+  const size_t smem = flash_decode::smem_bytes(G, D);
   auto kern = decode_attention_kernel<QT, CT>;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);

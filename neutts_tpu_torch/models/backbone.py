@@ -152,7 +152,7 @@ def rope_tables(head_dim: int, theta: float, positions: torch.Tensor):
     """positions [...] int -> (cos, sin) each [..., head_dim/2] f32."""
     half = head_dim // 2
     ar = torch.arange(half, dtype=torch.float32, device=positions.device)
-    freqs = torch.pow(torch.tensor(theta, dtype=torch.float32, device=positions.device), -ar / half)
+    freqs = torch.pow(float(theta), -ar / half)  # a scalar base: no host-to-device copy
     angles = positions.float()[..., None] * freqs
     return torch.cos(angles), torch.sin(angles)
 
@@ -243,7 +243,7 @@ class KVCache:
         if cfg.kv_dtype in ("int4", "auto"):
             raise NotImplementedError(
                 f"kv_dtype={cfg.kv_dtype!r}: the int4 KV cache comes in a later slice of "
-                "the PyTorch port; use 'bfloat16' or 'int8'")
+                "the PyTorch port (ROADMAP Queue 1 item 3); use 'bfloat16' or 'int8'")
         dtype = dtype or torch_dtype(cfg.dtype)
         return KVCache(k=torch.zeros(shape, dtype=dtype, device=device),
                        v=torch.zeros(shape, dtype=dtype, device=device))

@@ -27,7 +27,10 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
-SOURCES = ("decode_attention.cu", "prefill_attention.cu", "w8a8.cu")
+SOURCES = (
+    "decode_attention.cu", "prefill_attention.cu", "w8a8.cu", "staged_attention.cu",
+    "slot_copy.cu",
+)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -40,6 +43,9 @@ launches: Dict[str, int] = {
     "prefill_attention": 0,
     "fused_qkv": 0,
     "fused_mlp": 0,
+    "decode_attention_staged": 0,
+    "reconcile_segment": 0,
+    "scatter_prefill": 0,
 }
 
 # dtype codes of csrc/common.cuh

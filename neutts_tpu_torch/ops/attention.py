@@ -1,19 +1,28 @@
-"""Attention for the backbone: decode over the KV cache, and prefill.
+"""Attention for the backbone and the serving engine's int8 KV cache.
 
-Two functions, each with a CUDA kernel (`csrc/decode_attention.cu`,
-`csrc/prefill_attention.cu`) and a plain PyTorch version of the same
-function. The wrapper picks by the tensors' device alone: a CPU tensor takes
-the plain version, a CUDA tensor launches the kernel (or raises).
+Five functions, each with a CUDA kernel (`csrc/decode_attention.cu`,
+`csrc/prefill_attention.cu`, `csrc/staged_attention.cu`, `csrc/slot_copy.cu`)
+and a plain PyTorch version of the same function. The wrapper picks by the
+tensors' device alone: a CPU tensor takes the plain version, a CUDA tensor
+launches the kernel (or raises).
 
 * `decode_attention` — one layer of the stacked cache [L, B, T, K*D]
   (bf16/f32 values, or int8 values with per-token f32 scales [L, B, T]);
   query q [B, K, G, D] attends the slots [pad, lens) of its row.
 * `prefill_attention` — causal, left-pad-masked GQA self-attention over a
   fresh window: q [B, S, H, D], k/v [B, S, K, D], pad rows zeroed.
+* `decode_attention_staged` — the serving decode: settled int8 cache
+  [pad, base) plus the segment's staging columns [0, step].
+* `reconcile_segment` — folds a segment's staging into the cache slots
+  [base, base + S) of the rows active at segment start, in place.
+* `scatter_prefill` — writes an admission group's prompt K/V into the cache
+  rows `slots`, slots [0, Lp), first occurrence of each slot only, in place.
 
-Counterparts: `neutts_tpu.ops.attention.decode_attention_stacked` and
-`prefill_attention` (the TPU kernels), `decode_attention_xla` and
-`backbone._attend_block_dense` (their XLA oracles).
+Counterparts: `neutts_tpu.ops.attention.decode_attention_stacked`,
+`prefill_attention`, `decode_attention_staged`, `reconcile_segment` and
+`scatter_prefill` (the TPU kernels); `decode_attention_xla`,
+`backbone._attend_block_dense`, `decode_attention_staged_xla` and
+`reconcile_segment_xla` (their XLA oracles).
 """
 
 from __future__ import annotations
@@ -24,12 +33,20 @@ from neutts_tpu_torch.ops import _build
 
 MASK_VALUE = -1e30  # finite: a fully masked row stays finite (never NaN)
 SMEM_LIMIT = 232_448  # dynamic shared memory one block may use on Hopper
+# Staging scale buffers of a serving segment are [L, B, SEG_PAD] with columns
+# [0, S) live (the JAX layout, kept at the public boundary); S <= SEG_PAD.
+SEG_PAD = 128
 
 
 def _check_int32(name: str, *tensors) -> None:
     for t in tensors:
         if t.dtype != torch.int32:
             raise TypeError(f"{name}: index tensors must be int32, got {t.dtype}")
+
+
+def _check_decode_geometry(name: str, G: int, D: int) -> None:
+    if G > 16 or D > 128:
+        raise ValueError(f"{name}: G={G}, D={D} exceed the kernel's shared memory")
 
 
 # --- decode ------------------------------------------------------------------
@@ -89,8 +106,7 @@ def _decode_attention_cuda(q, all_k, all_v, layer, lens, pad, k_scale, v_scale):
                 raise ValueError(f"{name}: scales must be f32 [{L}, {B}, {T}]")
     elif all_k.dtype != q.dtype or k_scale is not None:
         raise TypeError(f"{name}: a float cache must match q's dtype and take no scales")
-    if G > 16 or D > 128:
-        raise ValueError(f"{name}: G={G}, D={D} exceed the kernel's shared memory")
+    _check_decode_geometry(name, G, D)
     out = torch.empty_like(q)
     fn = _build.bind("decode_attention.cu", "neutts_decode_attention", 8, 8)
     with torch.cuda.device(q.device):
@@ -163,3 +179,223 @@ def _prefill_attention_cuda(q, k, v, pads):
     _build.check(rc, name)
     _build.launches["prefill_attention"] += 1
     return out
+
+
+# --- staged decode (serving segments) -------------------------------------------
+
+
+def decode_attention_staged(q, all_k, all_v, k_scale, v_scale, stag_k, stag_v, stag_ks, stag_vs,
+                            layer: int, step: int, base, pad):
+    """Flash-decode over the settled int8 cache [pad, base) of layer `layer`
+    plus the staging columns [0, step] of the current segment.
+
+    q [B, K, G, D] (f32/bf16); all_k/all_v int8 [L, B, T, K*D] with f32
+    k_scale/v_scale [L, B, T]; stag_k/stag_v int8 [L, B, S, K*D] with f32
+    stag_ks/stag_vs [L, B, SEG_PAD] (columns [0, S) live); base/pad [B]
+    int32. Returns [B, K, G, D] in q's dtype."""
+    args = (q, all_k, all_v, k_scale, v_scale, stag_k, stag_v, stag_ks, stag_vs, layer, step,
+            base, pad)
+    if q.device.type == "cpu":
+        return decode_attention_staged_plain(*args)
+    if q.device.type != "cuda":
+        raise ValueError(f"decode_attention_staged: unsupported device {q.device}")
+    return _decode_attention_staged_cuda(*args)
+
+
+def decode_attention_staged_plain(q, all_k, all_v, k_scale, v_scale, stag_k, stag_v, stag_ks,
+                                  stag_vs, layer: int, step: int, base, pad):
+    """The XLA oracle's steps: dequantize, concatenate the staging after the
+    cache, mask to [pad, base) u [T, T + step], f32 softmax and PV."""
+    B, K, G, D = q.shape
+    T, S = all_k.shape[2], stag_k.shape[2]
+    ck = all_k[layer].float() * k_scale[layer][..., None]
+    cv = all_v[layer].float() * v_scale[layer][..., None]
+    sk = stag_k[layer].float() * stag_ks[layer][:, :S, None]
+    sv = stag_v[layer].float() * stag_vs[layer][:, :S, None]
+    ck2 = torch.cat([ck, sk], dim=1).reshape(B, T + S, K, D)
+    cv2 = torch.cat([cv, sv], dim=1).reshape(B, T + S, K, D)
+    t = torch.arange(T + S, device=q.device)
+    valid = ((t[None, :] < base[:, None]) & (t[None, :] >= pad[:, None])) | (
+        (t[None, :] >= T) & (t[None, :] <= T + step)
+    )  # [B, T + S]
+    s = torch.einsum("bkgd,btkd->bkgt", q.float(), ck2) * D**-0.5
+    s = torch.where(valid[:, None, None, :], s, torch.tensor(MASK_VALUE, device=q.device))
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bkgt,btkd->bkgd", p, cv2).to(q.dtype)
+
+
+def _check_staging(name, all_k, all_v, k_scale, v_scale, stag_k, stag_v, stag_ks, stag_vs):
+    """Shapes and types of an int8 cache and a segment's staging buffers;
+    returns (L, B, T, KD, S)."""
+    L, B, T, KD = all_k.shape
+    S = stag_k.shape[2]
+    if all_v.shape != all_k.shape or stag_k.shape != (L, B, S, KD) or stag_v.shape != stag_k.shape:
+        raise ValueError(f"{name}: cache {tuple(all_k.shape)}, staging {tuple(stag_k.shape)}")
+    if not 0 < S <= SEG_PAD:
+        raise ValueError(f"{name}: {S} staging columns, at most SEG_PAD={SEG_PAD}")
+    for t in (all_k, all_v, stag_k, stag_v):
+        if t.dtype != torch.int8:
+            raise TypeError(f"{name}: cache and staging values must be int8, got {t.dtype}")
+    for t, shape in ((k_scale, (L, B, T)), (v_scale, (L, B, T)), (stag_ks, (L, B, SEG_PAD)),
+                     (stag_vs, (L, B, SEG_PAD))):
+        if t.dtype != torch.float32 or t.shape != shape:
+            raise ValueError(f"{name}: scales must be f32 {list(shape)}, got {t.dtype} "
+                             f"{list(t.shape)}")
+    return L, B, T, KD, S
+
+
+def _decode_attention_staged_cuda(q, all_k, all_v, k_scale, v_scale, stag_k, stag_v, stag_ks,
+                                  stag_vs, layer, step, base, pad):
+    name = "decode_attention_staged"
+    B, K, G, D = q.shape
+    _build.check_inputs(name, q, all_k, all_v, k_scale, v_scale, stag_k, stag_v, stag_ks,
+                        stag_vs, base, pad)
+    _check_int32(name, base, pad)
+    L, Bc, T, KD, S = _check_staging(name, all_k, all_v, k_scale, v_scale, stag_k, stag_v,
+                                     stag_ks, stag_vs)
+    if Bc != B or KD != K * D or not 0 <= layer < L or not 0 <= step < S:
+        raise ValueError(f"{name}: q {tuple(q.shape)} vs cache {tuple(all_k.shape)}, "
+                         f"layer {layer}, step {step} of {S}")
+    if base.shape != (B,) or pad.shape != (B,):
+        raise ValueError(f"{name}: base/pad must be [{B}]")
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"{name}: q must be f32 or bf16, got {q.dtype}")
+    _check_decode_geometry(name, G, D)
+    out = torch.empty_like(q)
+    fn = _build.bind("staged_attention.cu", "neutts_decode_attention_staged", 12, 10)
+    with torch.cuda.device(q.device):
+        rc = fn(
+            q.data_ptr(), all_k.data_ptr(), all_v.data_ptr(), k_scale.data_ptr(),
+            v_scale.data_ptr(), stag_k.data_ptr(), stag_v.data_ptr(), stag_ks.data_ptr(),
+            stag_vs.data_ptr(), base.data_ptr(), pad.data_ptr(), out.data_ptr(),
+            B, K, G, D, T, S, SEG_PAD, int(layer), int(step), _build.DTYPE_CODE[q.dtype],
+            _build.stream_of(q.device),
+        )
+    _build.check(rc, name)
+    _build.launches[name] += 1
+    return out
+
+
+# --- slot copies: segment reconcile and admission write --------------------------
+
+
+def _check_copy_buffers(name: str, KD: int, *tensors) -> None:
+    """The 16-byte vector copies of csrc/slot_copy.cu need KD % 16 == 0 and
+    16-byte aligned value buffers."""
+    if KD % 16:
+        raise ValueError(f"{name}: K*D={KD} must be a multiple of 16")
+    for t in tensors:
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: buffers must be 16-byte aligned")
+
+
+def reconcile_segment(all_k, all_v, k_scale, v_scale, stag_k, stag_v, stag_ks, stag_vs,
+                      base, active):
+    """Copy one segment's staging (values [L, B, S, K*D], scales
+    [L, B, SEG_PAD]) into cache slots [base[b], base[b] + S) of every row b
+    with active[b], IN PLACE; other rows stay untouched. Columns outside
+    [0, T) are dropped. Returns (all_k, all_v, k_scale, v_scale)."""
+    args = (all_k, all_v, k_scale, v_scale, stag_k, stag_v, stag_ks, stag_vs, base, active)
+    if all_k.device.type == "cpu":
+        return reconcile_segment_plain(*args)
+    if all_k.device.type != "cuda":
+        raise ValueError(f"reconcile_segment: unsupported device {all_k.device}")
+    return _reconcile_segment_cuda(*args)
+
+
+def reconcile_segment_plain(all_k, all_v, k_scale, v_scale, stag_k, stag_v, stag_ks, stag_vs,
+                            base, active):
+    B, T = all_k.shape[1], all_k.shape[2]
+    S = stag_k.shape[2]
+    cols = base[:, None] + torch.arange(S, device=base.device)  # [B, S]
+    hit = active[:, None] & (cols >= 0) & (cols < T)
+    rows = torch.arange(B, device=base.device)[:, None].expand(B, S)[hit]
+    c = cols[hit]
+    all_k[:, rows, c] = stag_k[:, hit]
+    all_v[:, rows, c] = stag_v[:, hit]
+    k_scale[:, rows, c] = stag_ks[:, :, :S][:, hit]
+    v_scale[:, rows, c] = stag_vs[:, :, :S][:, hit]
+    return all_k, all_v, k_scale, v_scale
+
+
+def _reconcile_segment_cuda(all_k, all_v, k_scale, v_scale, stag_k, stag_v, stag_ks, stag_vs,
+                            base, active):
+    name = "reconcile_segment"
+    _build.check_inputs(name, all_k, all_v, k_scale, v_scale, stag_k, stag_v, stag_ks, stag_vs,
+                        base, active)
+    _check_int32(name, base)
+    L, B, T, KD, S = _check_staging(name, all_k, all_v, k_scale, v_scale, stag_k, stag_v,
+                                    stag_ks, stag_vs)
+    if base.shape != (B,) or active.shape != (B,) or active.dtype != torch.bool:
+        raise ValueError(f"{name}: base must be int32 [{B}] and active bool [{B}]")
+    _check_copy_buffers(name, KD, all_k, all_v, stag_k, stag_v)
+    fn = _build.bind("slot_copy.cu", "neutts_reconcile_segment", 10, 6)
+    with torch.cuda.device(all_k.device):
+        rc = fn(
+            stag_k.data_ptr(), stag_v.data_ptr(), stag_ks.data_ptr(), stag_vs.data_ptr(),
+            base.data_ptr(), active.data_ptr(), all_k.data_ptr(), all_v.data_ptr(),
+            k_scale.data_ptr(), v_scale.data_ptr(), L, B, T, S, KD, SEG_PAD,
+            _build.stream_of(all_k.device),
+        )
+    _build.check(rc, name)
+    _build.launches[name] += 1
+    return all_k, all_v, k_scale, v_scale
+
+
+def scatter_prefill(all_k, all_v, k_scale, v_scale, new_k, new_v, new_ks, new_vs, slots,
+                    primary):
+    """Admission-group cache write, IN PLACE: for each admission row j with
+    primary[j], prompt values new_k/new_v [L, G, Lp, K*D] (int8) and scales
+    new_ks/new_vs [L, G, Lp] (f32) land in cache row slots[j] (in [0, B)),
+    slots [0, Lp). Rows not named stay untouched. Returns (all_k, all_v,
+    k_scale, v_scale)."""
+    args = (all_k, all_v, k_scale, v_scale, new_k, new_v, new_ks, new_vs, slots, primary)
+    if all_k.device.type == "cpu":
+        return scatter_prefill_plain(*args)
+    if all_k.device.type != "cuda":
+        raise ValueError(f"scatter_prefill: unsupported device {all_k.device}")
+    return _scatter_prefill_cuda(*args)
+
+
+def scatter_prefill_plain(all_k, all_v, k_scale, v_scale, new_k, new_v, new_ks, new_vs, slots,
+                          primary):
+    n = min(new_k.shape[2], all_k.shape[2])
+    rows = slots[primary].long()
+    all_k[:, rows, :n] = new_k[:, primary, :n]
+    all_v[:, rows, :n] = new_v[:, primary, :n]
+    k_scale[:, rows, :n] = new_ks[:, primary, :n]
+    v_scale[:, rows, :n] = new_vs[:, primary, :n]
+    return all_k, all_v, k_scale, v_scale
+
+
+def _scatter_prefill_cuda(all_k, all_v, k_scale, v_scale, new_k, new_v, new_ks, new_vs, slots,
+                          primary):
+    name = "scatter_prefill"
+    _build.check_inputs(name, all_k, all_v, k_scale, v_scale, new_k, new_v, new_ks, new_vs,
+                        slots, primary)
+    _check_int32(name, slots)
+    L, B, T, KD = all_k.shape
+    G, Lp = new_k.shape[1], new_k.shape[2]
+    if all_v.shape != all_k.shape or new_k.shape != (L, G, Lp, KD) or new_v.shape != new_k.shape:
+        raise ValueError(f"{name}: cache {tuple(all_k.shape)}, prompt K/V {tuple(new_k.shape)}")
+    for t in (all_k, all_v, new_k, new_v):
+        if t.dtype != torch.int8:
+            raise TypeError(f"{name}: values must be int8, got {t.dtype}")
+    for t, shape in ((k_scale, (L, B, T)), (v_scale, (L, B, T)), (new_ks, (L, G, Lp)),
+                     (new_vs, (L, G, Lp))):
+        if t.dtype != torch.float32 or t.shape != shape:
+            raise ValueError(f"{name}: scales must be f32 {list(shape)}")
+    if slots.shape != (G,) or primary.shape != (G,) or primary.dtype != torch.bool:
+        raise ValueError(f"{name}: slots must be int32 [{G}] and primary bool [{G}]")
+    _check_copy_buffers(name, KD, all_k, all_v, new_k, new_v)
+    fn = _build.bind("slot_copy.cu", "neutts_scatter_prefill", 10, 6)
+    with torch.cuda.device(all_k.device):
+        rc = fn(
+            new_k.data_ptr(), new_v.data_ptr(), new_ks.data_ptr(), new_vs.data_ptr(),
+            slots.data_ptr(), primary.data_ptr(), all_k.data_ptr(), all_v.data_ptr(),
+            k_scale.data_ptr(), v_scale.data_ptr(), L, G, B, T, Lp, KD,
+            _build.stream_of(all_k.device),
+        )
+    _build.check(rc, name)
+    _build.launches[name] += 1
+    return all_k, all_v, k_scale, v_scale

@@ -17,6 +17,7 @@ from __future__ import annotations
 import torch
 
 from neutts_tpu_torch.config import SamplingConfig
+from neutts_tpu_torch.models import backbone as bb
 
 _NEG_INF = float("-inf")
 
@@ -67,7 +68,11 @@ def constrain_to_speech(logits, speech_base: int, codebook_size: int, eos_id: in
 
 
 def _suppress_vector(suppress_eos, B: int, device) -> torch.Tensor:
-    return torch.as_tensor(suppress_eos, device=device).to(torch.bool).expand(B)
+    # a Python bool is filled on the device: a host-to-device copy of it
+    # would wait for the stream (the serving loop must not)
+    if isinstance(suppress_eos, torch.Tensor):
+        return suppress_eos.to(device=device, dtype=torch.bool).expand(B)
+    return torch.full((B,), bool(suppress_eos), dtype=torch.bool, device=device)
 
 
 def sample_step(logits, generator, cfg: SamplingConfig, eos_id: int, suppress_eos,
@@ -145,3 +150,18 @@ def sample_logits(logits, generator, cfg_backbone, sampling: SamplingConfig, eos
         return sample_step_speech(logits, generator, sampling, eos_id, suppress, width=width)
     return sample_step(logits, generator, sampling, eos_id, suppress,
                        vocab_size=cfg_backbone.vocab_size)
+
+
+def sample_from_hidden(cfg_backbone, sampling: SamplingConfig, params, x, generator, eos_id: int,
+                       suppress) -> torch.Tensor:
+    """Head projection + sampling for the serving loops, one definition for
+    prefill and decode: the pre-sliced speech head when constrained
+    sampling has it attached, else the padded full-vocab head. x [B, D];
+    returns [B] int32 vocab ids."""
+    speech = use_speech_head(cfg_backbone, sampling, params)
+    if speech:
+        logits = bb._logits_speech(cfg_backbone, params, x)
+    else:
+        logits = bb._logits(cfg_backbone, params, x, trim=False)
+    return sample_logits(logits, generator, cfg_backbone, sampling, eos_id, suppress,
+                         speech=speech)

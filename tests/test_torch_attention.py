@@ -173,3 +173,88 @@ def test_dispatch_is_by_device():
                                   tattn.decode_attention_plain(*args).numpy())
     with pytest.raises(ValueError):
         tattn.decode_attention(args[0].to("meta"), *args[1:])
+
+
+# --- serving: staged decode, segment reconcile, admission write ------------------
+
+
+def _staged_inputs(seed=0, L=2, B=4, T=256, K=2, G=2, D=16, S=16):
+    rng = np.random.default_rng(seed)
+    KD = K * D
+    return dict(
+        q=rng.standard_normal((B, K, G, D)).astype(np.float32),
+        all_k=rng.integers(-127, 128, (L, B, T, KD)).astype(np.int8),
+        all_v=rng.integers(-127, 128, (L, B, T, KD)).astype(np.int8),
+        k_scale=rng.uniform(0.01, 0.1, (L, B, T)).astype(np.float32),
+        v_scale=rng.uniform(0.01, 0.1, (L, B, T)).astype(np.float32),
+        stag_k=rng.integers(-127, 128, (L, B, S, KD)).astype(np.int8),
+        stag_v=rng.integers(-127, 128, (L, B, S, KD)).astype(np.int8),
+        stag_ks=rng.uniform(0.01, 0.1, (L, B, tattn.SEG_PAD)).astype(np.float32),
+        stag_vs=rng.uniform(0.01, 0.1, (L, B, tattn.SEG_PAD)).astype(np.float32),
+    )
+
+
+@pytest.mark.parametrize("step", [0, 15])
+def test_staged_decode_matches_oracle_and_kernel(step):
+    """int8 staged decode, layer 1 of a stacked cache, ragged base/pad and a
+    row with base == 0 (attends its staging columns alone): plain == the XLA
+    oracle to 1e-5 (same f32 math), == the Pallas kernel (interpret) to 2e-2
+    (it rounds probabilities to bf16 before PV; the port keeps f32)."""
+    x = _staged_inputs()
+    base = np.asarray([0, 64, 200, 256], np.int32)
+    pad = np.asarray([0, 3, 17, 0], np.int32)
+    names = ("q", "all_k", "all_v", "k_scale", "v_scale", "stag_k", "stag_v", "stag_ks",
+             "stag_vs")
+    got = tattn.decode_attention_staged(*(_t(x[n]) for n in names), 1, step, _t(base), _t(pad))
+    assert got.shape == x["q"].shape and torch.isfinite(got).all()
+    jargs = [jnp.asarray(x[n]) for n in names]
+    want = jattn.decode_attention_staged_xla(*jargs, 1, step, jnp.asarray(base), jnp.asarray(pad))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
+    kern = jattn.decode_attention_staged(*jargs, jnp.int32(1), jnp.int32(step), jnp.asarray(base),
+                                         jnp.asarray(pad), interpret=True, row_block=4)
+    np.testing.assert_allclose(got.numpy(), np.asarray(kern), rtol=2e-2, atol=2e-2)
+
+
+def test_reconcile_matches_pallas_kernel_exactly():
+    """Segment reconcile in place: plain == the JAX reconcile (Pallas copy in
+    interpret mode + one-hot scale fold) on all four buffers, array-equal;
+    inactive rows untouched byte for byte."""
+    x = _staged_inputs(seed=1, B=4, S=8)
+    base = np.asarray([8, 0, 120, 248], np.int32)  # the last row ends at T
+    active = np.asarray([True, False, True, True])
+    bufs = [x[n].copy() for n in ("all_k", "all_v", "k_scale", "v_scale")]
+    stag = [x[n] for n in ("stag_k", "stag_v", "stag_ks", "stag_vs")]
+    got = tattn.reconcile_segment(*(_t(b) for b in bufs), *(_t(s) for s in stag), _t(base),
+                                  _t(active))
+    want = jattn.reconcile_segment(*(jnp.asarray(b) for b in bufs),
+                                   *(jnp.asarray(s) for s in stag), jnp.asarray(base),
+                                   jnp.asarray(active), interpret=True, row_block=4)
+    for g, w, before in zip(got, want, bufs):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+        np.testing.assert_array_equal(g.numpy()[:, 1], before[:, 1])  # inactive row
+    np.testing.assert_array_equal(got[0].numpy()[:, 2, 120:128], x["stag_k"][:, 2])
+
+
+def test_scatter_prefill_matches_pallas_kernel_exactly():
+    """Admission write in place, with a duplicated slot (group padding) and
+    rows not named: plain == the JAX scatter_prefill (Pallas copy in
+    interpret mode + one-hot scale projection), array-equal."""
+    rng = np.random.default_rng(2)
+    L, B, T, KD, G, Lp = 2, 6, 256, 32, 4, 64
+    bufs = [rng.integers(-127, 128, (L, B, T, KD)).astype(np.int8) for _ in range(2)]
+    bufs += [rng.uniform(0.01, 0.1, (L, B, T)).astype(np.float32) for _ in range(2)]
+    new = [rng.integers(-127, 128, (L, G, Lp, KD)).astype(np.int8) for _ in range(2)]
+    new += [rng.uniform(0.01, 0.1, (L, G, Lp)).astype(np.float32) for _ in range(2)]
+    for a in new:
+        a[:, 3] = a[:, 2]  # the duplicate carries the same row
+    slots = np.asarray([4, 0, 2, 2], np.int32)
+    primary = np.asarray([True, True, True, False])
+    got = tattn.scatter_prefill(*(_t(b.copy()) for b in bufs), *(_t(a) for a in new),
+                                _t(slots), _t(primary))
+    want = jattn.scatter_prefill(*(jnp.asarray(b) for b in bufs), *(jnp.asarray(a) for a in new),
+                                 jnp.asarray(slots), jnp.asarray(primary), interpret=True)
+    for g, w, before in zip(got, want, bufs):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+        for untouched in (1, 3, 5):
+            np.testing.assert_array_equal(g.numpy()[:, untouched], before[:, untouched])
+    np.testing.assert_array_equal(got[0].numpy()[:, 2, :Lp], new[0][:, 2])

@@ -112,3 +112,128 @@ def test_int_mm_row_padding(dev):
         torch._int_mm(a, b)
     want = (a.double() @ b.double()).to(torch.int32)
     torch.testing.assert_close(mlp_ops.int8_matmul(a, b), want, rtol=0, atol=0)
+
+
+# --- serving kernels (staged decode, reconcile, admission write) -------------------
+
+
+def _staging(dev, L, B, S, KD, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    sk = torch.randint(-127, 128, (L, B, S, KD), generator=g, device=dev, dtype=torch.int8)
+    sv = torch.randint(-127, 128, (L, B, S, KD), generator=g, device=dev, dtype=torch.int8)
+    sks = torch.rand((L, B, attn.SEG_PAD), generator=g, device=dev) * 0.1 + 0.01
+    svs = torch.rand((L, B, attn.SEG_PAD), generator=g, device=dev) * 0.1 + 0.01
+    return sk, sv, sks, svs
+
+
+@pytest.mark.parametrize("dtype,G,D,step", [
+    (torch.bfloat16, 7, 64, 0), (torch.bfloat16, 7, 64, 31), (torch.float32, 2, 16, 17),
+])
+def test_staged_attention_kernel(dev, dtype, G, D, step):
+    """Ragged settled lengths, a row with base == 0 (staging only) and one
+    whose settled range crosses several 64-token tiles."""
+    L, B, K, T, S = 2, 4, 2, 320, 32
+    q = _randn(dev, B, K, G, D, dtype=dtype)
+    (ck, ks), (cv, vs) = (bb.quantize_kv(_randn(dev, L, B, T, K * D, seed=s)) for s in (1, 2))
+    stag = _staging(dev, L, B, S, K * D, seed=3)
+    base = torch.tensor([0, 64, 320, 130], dtype=torch.int32, device=dev)
+    pad = torch.tensor([0, 5, 0, 64], dtype=torch.int32, device=dev)
+    args = (q, ck, cv, ks, vs, *stag, 1, step, base, pad)
+    before = _build.launches["decode_attention_staged"]
+    got = attn.decode_attention_staged(*args)
+    torch.cuda.synchronize()
+    want = attn.decode_attention_staged_plain(*args)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    assert _build.launches["decode_attention_staged"] == before + 1
+
+
+def test_reconcile_kernel_exact(dev):
+    """Active rows land at [base, base + S), an inactive row and the rows'
+    other slots stay untouched; a row at the end of the cache fits exactly."""
+    L, B, T, KD, S = 3, 5, 256, 128, 32
+    g = torch.Generator(device=dev).manual_seed(4)
+    bufs = [torch.randint(-127, 128, (L, B, T, KD), generator=g, device=dev, dtype=torch.int8)
+            for _ in range(2)]
+    bufs += [torch.rand((L, B, T), generator=g, device=dev) for _ in range(2)]
+    stag = _staging(dev, L, B, S, KD, seed=5)
+    base = torch.tensor([0, 64, 224, 128, 8], dtype=torch.int32, device=dev)
+    active = torch.tensor([True, False, True, True, True], device=dev)
+    got = attn.reconcile_segment(*(b.clone() for b in bufs), *stag, base, active)
+    torch.cuda.synchronize()
+    want = attn.reconcile_segment_plain(*(b.clone() for b in bufs), *stag, base, active)
+    for x, y in zip(got, want):
+        assert torch.equal(x, y)
+    assert torch.equal(got[0][:, 1], bufs[0][:, 1])
+
+
+def test_scatter_prefill_kernel_exact(dev):
+    """Duplicate slots written once, rows not named untouched."""
+    L, B, T, KD, G, Lp = 3, 6, 256, 128, 4, 192
+    g = torch.Generator(device=dev).manual_seed(6)
+    bufs = [torch.randint(-127, 128, (L, B, T, KD), generator=g, device=dev, dtype=torch.int8)
+            for _ in range(2)]
+    bufs += [torch.rand((L, B, T), generator=g, device=dev) for _ in range(2)]
+    new = [torch.randint(-127, 128, (L, G, Lp, KD), generator=g, device=dev, dtype=torch.int8)
+           for _ in range(2)]
+    new += [torch.rand((L, G, Lp), generator=g, device=dev) for _ in range(2)]
+    for a in new:
+        a[:, 3] = a[:, 1]
+    slots = torch.tensor([5, 2, 0, 2], dtype=torch.int32, device=dev)
+    primary = torch.tensor([True, True, True, False], device=dev)
+    got = attn.scatter_prefill(*(b.clone() for b in bufs), *new, slots, primary)
+    torch.cuda.synchronize()
+    want = attn.scatter_prefill_plain(*(b.clone() for b in bufs), *new, slots, primary)
+    for x, y, before in zip(got, want, bufs):
+        assert torch.equal(x, y)
+        assert torch.equal(x[:, 1], before[:, 1]) and torch.equal(x[:, 3:5], before[:, 3:5])
+
+
+@pytest.mark.parametrize("kv_dtype", ["float32", "int8"])
+def test_tiny_engine_gpu_matches_cpu(dev, kv_dtype):
+    """A small f32 Engine on the card (kernels) emits the greedy tokens of
+    the same Engine on the CPU (plain versions)."""
+    from neutts_tpu_torch import config
+    from neutts_tpu_torch.serving import Engine
+
+    cfg = config.TINY.scaled(kv_dtype=kv_dtype)
+    eos = cfg.layout.speech_gen_end
+    params = bb.init_params(cfg, seed=3, device="cpu")
+    scfg = config.SamplingConfig(greedy=True, min_new_tokens=2)
+    prompts = [[3, 1, 4, 1, 5], [9, 2, 6], [2, 7, 1, 8, 2, 8], [11, 12]]
+    results = []
+    for d in ("cpu", dev):
+        eng = Engine(cfg, params, eos_id=eos, n_slots=2, sampling=scfg, segment_steps=8,
+                     device=d)
+        rids = [eng.submit(p, max_new=24) for p in prompts]
+        out = eng.run()
+        results.append([out[r] for r in rids])
+    assert results[0] == results[1]
+
+
+@pytest.mark.parametrize("quantize", [False, True])
+def test_engine_dispatch_never_waits_for_the_device(dev, quantize):
+    """A dispatch (admission group + one staged int8 segment) queues its work
+    without one host synchronisation, so the pipelined run overlaps the
+    host's bookkeeping with the device; the readback then delivers."""
+    from neutts_tpu_torch import config
+    from neutts_tpu_torch.serving import Engine
+
+    cfg = config.TINY.scaled(kv_dtype="int8")
+    lay = cfg.layout
+    params = bb.init_params(cfg, seed=3, device=dev)
+    if quantize:
+        params = bb.quantize_params(params)
+    eng = Engine(cfg, params, eos_id=lay.speech_gen_end, n_slots=4,
+                 sampling=config.SamplingConfig(min_new_tokens=8).constrained_to(lay),
+                 segment_steps=8, device=dev)
+    rids = [eng.submit([3 + i, 1, 4, 1, 5], max_new=8) for i in range(3)]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        pending = eng.step_dispatch()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    eng.step_collect(pending)
+    done = {r.rid: r.tokens for r in eng.pop_finished()}
+    assert sorted(done) == rids and all(len(t) == 8 for t in done.values())
