@@ -129,11 +129,18 @@ def main() -> int:
 
     def record(key, got, want, tol, ms, plain_ms, library_ms, nbytes, ops, peak, replaces,
                source):
-        """One kernel's entry; got/want are a tensor or a tuple of tensors,
-        and tol 0 asks for equality."""
+        """One kernel's entry; got/want are a tensor or a tuple of tensors.
+        tol 0 asks for equality; a tensor tol is a limit per element
+        (broadcast against want), reported as its largest value."""
         pairs = list(zip(got, want)) if isinstance(got, tuple) else [(got, want)]
-        err = max(float((a.float() - b.float()).abs().max()) for a, b in pairs)
-        ok = all(torch.equal(a, b) for a, b in pairs) if tol == 0 else np.isfinite(err) and err <= tol
+        diffs = [(a.float() - b.float()).abs() for a, b in pairs]
+        err = max(float(d.max()) for d in diffs)
+        note = ", per element" if torch.is_tensor(tol) else ""
+        if not note and tol == 0:
+            ok, note = all(torch.equal(a, b) for a, b in pairs), ", exact"
+        else:
+            ok = np.isfinite(err) and all(bool((d <= tol).all()) for d in diffs)
+            tol = float(torch.as_tensor(tol).max())
         bms, by = bound(nbytes, ops, peak)
         results[key] = {
             "name": key, "route": "cuda", "source": source, "replaces": replaces,
@@ -141,7 +148,7 @@ def main() -> int:
             "bound_ms": bms, "bound_by": by, "library_ms": library_ms,
         }
         lib = "n/a" if library_ms is None else f"{library_ms:.4f}"
-        print(f"[3] {key}: max_abs_err {err:.3e} (tol {tol:.3e}{', exact' if tol == 0 else ''})"
+        print(f"[3] {key}: max_abs_err {err:.3e} (tol {tol:.3e}{note})"
               f" | ms {ms:.4f} | plain {plain_ms:.4f} | library {lib} | bound {bms:.4f} ({by})")
         require(ok, f"{key} disagrees with its plain version")
 
@@ -285,7 +292,10 @@ def main() -> int:
     lib_ms = time_ms(lambda i: torch.nn.functional.scaled_dot_product_attention(
         lq, lk, lv, attn_mask=smask), 100)
     n_att = live + Bs * (step + 1)
-    record("decode_attention_staged", got, want, 2e-2, ms, plain_ms, lib_ms,
+    # each row within 1% of its largest |output| (about 2.5 bf16 ulp there):
+    # one settled or staging token dropped or misplaced moves a row past it
+    row_tol = 1e-2 * want.float().abs().amax(dim=(1, 2, 3), keepdim=True)
+    record("decode_attention_staged", got, want, row_tol, ms, plain_ms, lib_ms,
            2 * Bs * H * D * 2 + n_att * (2 * KD + 8) + 8 * Bs, 4.0 * H * D * n_att, PEAK_BF16,
            "neutts_tpu/ops/attention.py:548", "neutts_tpu_torch/csrc/staged_attention.cu")
     del lk, lv, got, want

@@ -265,20 +265,16 @@ def quantize_kv(x: torch.Tensor):
     return q.to(torch.int8), scale
 
 
-def write_kv_token(cache: KVCache, kf: torch.Tensor, vf: torch.Tensor, l: int,
-                   cur_index: int) -> None:
-    """Write one token's K/V ([B, KD] each) at slot `cur_index` of layer l,
-    in place (quantized per token in int8 mode)."""
+def write_kv(cache: KVCache, l: int, at: tuple, kf: torch.Tensor, vf: torch.Tensor) -> None:
+    """Write K/V values kf/vf [..., KD] at layer l, positions `at` (an index
+    into the [B, T] axes: a slot, a slot range, or per-row (rows, cols)), in
+    place; quantized per token in int8 mode."""
     if cache.quantized:
-        kq, ks = quantize_kv(kf)
-        vq, vs = quantize_kv(vf)
-        cache.k[l, :, cur_index] = kq
-        cache.v[l, :, cur_index] = vq
-        cache.k_scale[l, :, cur_index] = ks
-        cache.v_scale[l, :, cur_index] = vs
+        cache.k[(l, *at)], cache.k_scale[(l, *at)] = quantize_kv(kf)
+        cache.v[(l, *at)], cache.v_scale[(l, *at)] = quantize_kv(vf)
     else:
-        cache.k[l, :, cur_index] = kf.to(cache.k.dtype)
-        cache.v[l, :, cur_index] = vf.to(cache.v.dtype)
+        cache.k[(l, *at)] = kf.to(cache.k.dtype)
+        cache.v[(l, *at)] = vf.to(cache.v.dtype)
 
 
 # --- blocks --------------------------------------------------------------------
@@ -331,10 +327,12 @@ def _block_fresh(cfg: BackboneConfig, lp: Params, x, cos, sin, pads):
     return _mlp(cfg, lp, x), k, v
 
 
-def prefill(cfg: BackboneConfig, params: Params, tokens: torch.Tensor,
-            prompt_lens: torch.Tensor, cache: KVCache, speech_head: bool = False):
-    """Left-padded prompts [B, Lp] (true lengths prompt_lens [B]) -> last
-    position logits [B, V]; writes slots [0, Lp) of `cache` in place."""
+def prefill_hidden(cfg: BackboneConfig, params: Params, tokens: torch.Tensor,
+                   prompt_lens: torch.Tensor, dest: KVCache, at: tuple) -> torch.Tensor:
+    """Every layer over left-padded prompts [B, Lp] (true lengths
+    prompt_lens [B]); each layer's K/V [B, Lp, KD] goes to `dest` at `at`
+    (`write_kv`). Returns the final-normed hidden state of the last position
+    [B, D]."""
     B, Lp = tokens.shape
     dev = tokens.device
     pad = (Lp - prompt_lens).to(torch.int32)
@@ -344,22 +342,40 @@ def prefill(cfg: BackboneConfig, params: Params, tokens: torch.Tensor,
     x = params["embed"].to(torch_dtype(cfg.dtype))[tokens.long()]
     for l in range(cfg.n_layers):
         x, k, v = _block_fresh(cfg, layer_params(params, l), x, cos, sin, pad)
-        kf = k.reshape(B, Lp, -1)
-        vf = v.reshape(B, Lp, -1)
-        if cache.quantized:
-            kq, ks = quantize_kv(kf)
-            vq, vs = quantize_kv(vf)
-            cache.k[l, :, :Lp] = kq
-            cache.v[l, :, :Lp] = vq
-            cache.k_scale[l, :, :Lp] = ks
-            cache.v_scale[l, :, :Lp] = vs
-        else:
-            cache.k[l, :, :Lp] = kf.to(cache.k.dtype)
-            cache.v[l, :, :Lp] = vf.to(cache.v.dtype)
-    x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
+        write_kv(dest, l, at, k.reshape(B, Lp, -1), v.reshape(B, Lp, -1))
+    return rms_norm(x[:, -1, :], params["final_norm"], cfg.rms_norm_eps)
+
+
+def prefill(cfg: BackboneConfig, params: Params, tokens: torch.Tensor,
+            prompt_lens: torch.Tensor, cache: KVCache, speech_head: bool = False):
+    """Left-padded prompts [B, Lp] (true lengths prompt_lens [B]) -> last
+    position logits [B, V]; writes slots [0, Lp) of `cache` in place."""
+    h = prefill_hidden(cfg, params, tokens, prompt_lens, cache,
+                       (slice(None), slice(0, tokens.shape[1])))
     if speech_head:
-        return _logits_speech(cfg, params, x[:, -1, :]), cache
-    return _logits(cfg, params, x[:, -1, :]), cache
+        return _logits_speech(cfg, params, h), cache
+    return _logits(cfg, params, h), cache
+
+
+def decode_hidden(cfg: BackboneConfig, params: Params, layers, token: torch.Tensor,
+                  positions: torch.Tensor, attend) -> torch.Tensor:
+    """Every layer of one decode step: token [B] at RoPE positions [B].
+    `layers` holds each layer's `layer_params`. For layer l,
+    attend(l, q [B,K,G,Dh], k [B,KD], v [B,KD]) stores the step's K/V where
+    its caller keeps the cache and returns the attention [B,K,G,Dh]. Returns
+    the final-normed hidden state [B, D]."""
+    B = token.shape[0]
+    K, G = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads
+    cos, sin = rope_tables(cfg.head_dim, cfg.rope_theta, positions[:, None])
+    x = params["embed"].to(torch_dtype(cfg.dtype))[token.long()[:, None]]
+    for l, lp in enumerate(layers):
+        h = rms_norm(x, lp["attn_norm"], cfg.rms_norm_eps)
+        q, k, v = _qkv(cfg, lp, h, cos, sin)
+        a = attend(l, q[:, 0].reshape(B, K, G, cfg.head_dim).contiguous(),
+                   k[:, 0].reshape(B, -1), v[:, 0].reshape(B, -1))
+        x = x + _mm(a.to(x.dtype).reshape(B, 1, cfg.q_dim), lp["wo"]).to(x.dtype)
+        x = _mlp(cfg, lp, x)
+    return rms_norm(x[:, 0, :], params["final_norm"], cfg.rms_norm_eps)
 
 
 def decode_step(cfg: BackboneConfig, params: Params, token: torch.Tensor, cache: KVCache,
@@ -367,24 +383,15 @@ def decode_step(cfg: BackboneConfig, params: Params, token: torch.Tensor, cache:
                 speech_head: bool = False):
     """One decode step: feeds token [B] at cache slot `cur_index` (written
     first, in place), attends [pad, cur_index]; returns (logits [B, V], cache)."""
-    B = token.shape[0]
-    K, G = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads
-    dev = token.device
-    positions = (cur_index - pad)[:, None]
-    cos, sin = rope_tables(cfg.head_dim, cfg.rope_theta, positions)
-    lens = torch.full((B,), cur_index + 1, dtype=torch.int32, device=dev)
-    x = params["embed"].to(torch_dtype(cfg.dtype))[token.long()[:, None]]
-    for l in range(cfg.n_layers):
-        lp = layer_params(params, l)
-        h = rms_norm(x, lp["attn_norm"], cfg.rms_norm_eps)
-        q, k, v = _qkv(cfg, lp, h, cos, sin)
-        write_kv_token(cache, k[:, 0].reshape(B, -1), v[:, 0].reshape(B, -1), l, cur_index)
-        qg = q[:, 0].reshape(B, K, G, cfg.head_dim).contiguous()
-        a = attn_ops.decode_attention(qg, cache.k, cache.v, l, lens, pad,
-                                      cache.k_scale, cache.v_scale)
-        x = x + _mm(a.to(x.dtype).reshape(B, 1, cfg.q_dim), lp["wo"]).to(x.dtype)
-        x = _mlp(cfg, lp, x)
-    x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
+    lens = torch.full(token.shape, cur_index + 1, dtype=torch.int32, device=token.device)
+
+    def attend(l, q, k, v):
+        write_kv(cache, l, (slice(None), cur_index), k, v)
+        return attn_ops.decode_attention(q, cache.k, cache.v, l, lens, pad,
+                                         cache.k_scale, cache.v_scale)
+
+    layers = [layer_params(params, l) for l in range(cfg.n_layers)]
+    h = decode_hidden(cfg, params, layers, token, cur_index - pad, attend)
     if speech_head:
-        return _logits_speech(cfg, params, x[:, 0, :]), cache
-    return _logits(cfg, params, x[:, 0, :], trim=trim_logits), cache
+        return _logits_speech(cfg, params, h), cache
+    return _logits(cfg, params, h, trim=trim_logits), cache

@@ -42,9 +42,6 @@ from neutts_tpu_torch.ops import sampling as smp
 from neutts_tpu_torch.runtime.decode import PROMPT_BUCKETS
 
 SEGMENT_ALIGN = 8  # segment step counts must be multiples of this
-# int4 staged decode packs token pairs at reconcile (16-token aligned bases);
-# kept for the engine's segment rounding once the int4 cache is ported
-SEGMENT_ALIGN_INT4 = 16
 BLOCK_T = 256  # physical slot lengths are multiples of this (the JAX package's)
 
 # Extra physical cache slots per row beyond max_context: the worst left pad
@@ -97,52 +94,29 @@ def prefill_slots(cfg: BackboneConfig, sampling: SamplingConfig, eos_id: int, pa
     occurrence is written. Returns `state`, updated."""
     G, Lp = tokens.shape
     dev = tokens.device
-    L = cfg.n_layers
     cache = state.cache
-    pads = (Lp - true_lens).to(torch.int32)
-    idx = torch.arange(Lp, dtype=torch.int32, device=dev)
-    positions = torch.clamp(idx[None, :] - pads[:, None], min=0)
-    cos, sin = bb.rope_tables(cfg.head_dim, cfg.rope_theta, positions)
-    x = params["embed"].to(bb.torch_dtype(cfg.dtype))[tokens.long()]
     # first occurrence of each slot: duplicates take the primary row's values
     ar = torch.arange(G, device=dev)
     src = torch.where(slots[:, None] == slots[None, :], ar[None, :], G).amin(dim=1)
     primary = src == ar
-
-    # int8 cache, 64-aligned bucket: stack the layers' quantized K/V and
-    # write them with ONE scatter_prefill after the loop
-    stacked = cache.quantized and Lp % 64 == 0
-    if stacked:
-        KD = cfg.kv_dim
-        new_k = torch.empty((L, G, Lp, KD), dtype=torch.int8, device=dev)
-        new_v = torch.empty_like(new_k)
-        new_ks = torch.empty((L, G, Lp), dtype=torch.float32, device=dev)
-        new_vs = torch.empty_like(new_ks)
     rows = slots.long()
-    for l in range(L):
-        x, k, v = bb._block_fresh(cfg, bb.layer_params(params, l), x, cos, sin, pads)
-        kf = k.reshape(G, Lp, -1)
-        vf = v.reshape(G, Lp, -1)
-        if stacked:
-            new_k[l], new_ks[l] = bb.quantize_kv(kf)
-            new_v[l], new_vs[l] = bb.quantize_kv(vf)
-        elif cache.quantized:
-            kq, ks = bb.quantize_kv(kf)
-            vq, vs = bb.quantize_kv(vf)
-            cache.k[l, rows, :Lp] = kq
-            cache.v[l, rows, :Lp] = vq
-            cache.k_scale[l, rows, :Lp] = ks
-            cache.v_scale[l, rows, :Lp] = vs
-        else:
-            cache.k[l, rows, :Lp] = kf.to(cache.k.dtype)
-            cache.v[l, rows, :Lp] = vf.to(cache.v.dtype)
-    if stacked:
+    if cache.quantized:
+        # stack the layers' quantized K/V [L, G, Lp, KD], then ONE scatter_prefill
+        L, KD = cfg.n_layers, cfg.kv_dim
+        new = bb.KVCache(
+            k=torch.empty((L, G, Lp, KD), dtype=torch.int8, device=dev),
+            v=torch.empty((L, G, Lp, KD), dtype=torch.int8, device=dev),
+            k_scale=torch.empty((L, G, Lp), dtype=torch.float32, device=dev),
+            v_scale=torch.empty((L, G, Lp), dtype=torch.float32, device=dev))
+        h = bb.prefill_hidden(cfg, params, tokens, true_lens, new, ())
         attn_ops.scatter_prefill(cache.k, cache.v, cache.k_scale, cache.v_scale,
-                                 new_k, new_v, new_ks, new_vs, slots, primary)
-        del new_k, new_v, new_ks, new_vs
-    x = bb.rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
-    first = smp.sample_from_hidden(cfg, sampling, params, x[:, -1, :], state.generator, eos_id,
+                                 new.k, new.v, new.k_scale, new.v_scale, slots, primary)
+        del new
+    else:
+        h = bb.prefill_hidden(cfg, params, tokens, true_lens, cache, (rows, slice(0, Lp)))
+    first = smp.sample_from_hidden(cfg, sampling, params, h, state.generator, eos_id,
                                    0 < sampling.min_new_tokens)[src]  # [G]
+    pads = (Lp - true_lens).to(torch.int32)
     state.token = state.token.index_put((rows,), first)
     state.lens = state.lens.index_fill(0, rows, Lp)
     state.pad = state.pad.index_put((rows,), pads)
@@ -191,13 +165,11 @@ def decode_steps(cfg: BackboneConfig, sampling: SamplingConfig, eos_id: int, n_s
     return _decode_steps_scatter(cfg, sampling, eos_id, n_steps, params, state)
 
 
-def _step_head(cfg, sampling, eos_id, params, state, x, lens_new, active, lens, n_steps):
-    """Final norm, sampling and the per-row bookkeeping after one step's
-    layers. Returns (next tokens, new active, new lens)."""
-    x = bb.rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
+def _step_head(cfg, sampling, eos_id, params, state, h, lens_new, active, lens, n_steps):
+    """Sampling and the per-row bookkeeping after one step's layers (h [B, D]
+    final-normed). Returns (next tokens, new active, new lens)."""
     suppress = (lens_new - state.prompt_lens) < sampling.min_new_tokens
-    nxt = smp.sample_from_hidden(cfg, sampling, params, x[:, 0, :], state.generator, eos_id,
-                                 suppress)
+    nxt = smp.sample_from_hidden(cfg, sampling, params, h, state.generator, eos_id, suppress)
     in_ctx = _in_ctx(cfg, lens_new, state.pad, state.cache.max_len, n_steps)
     nxt = torch.where(active & in_ctx, nxt, eos_id).to(torch.int32)
     new_active = active & (nxt != eos_id) & in_ctx
@@ -211,43 +183,34 @@ def _decode_steps_staged(cfg, sampling, eos_id, n_steps, params, state):
     cache = state.cache
     B = state.token.shape[0]
     dev = state.token.device
-    L, S = cfg.n_layers, n_steps
-    K, G, Dh = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, cfg.head_dim
-    KD = K * Dh
-    dtype = bb.torch_dtype(cfg.dtype)
-
+    L, S, KD = cfg.n_layers, n_steps, cfg.kv_dim
     base = state.lens  # settled length per row, constant over the segment
     active0 = state.active  # rows reconciled at segment end
-    stag_k = torch.zeros((L, B, S, KD), dtype=torch.int8, device=dev)
-    stag_v = torch.zeros_like(stag_k)
-    stag_ks = torch.zeros((L, B, attn_ops.SEG_PAD), dtype=torch.float32, device=dev)
-    stag_vs = torch.zeros_like(stag_ks)
+    stag = bb.KVCache(  # staging: [L, B, S, KD] values, [L, B, SEG_PAD] scales
+        k=torch.zeros((L, B, S, KD), dtype=torch.int8, device=dev),
+        v=torch.zeros((L, B, S, KD), dtype=torch.int8, device=dev),
+        k_scale=torch.zeros((L, B, attn_ops.SEG_PAD), dtype=torch.float32, device=dev),
+        v_scale=torch.zeros((L, B, attn_ops.SEG_PAD), dtype=torch.float32, device=dev))
     outs = torch.empty((B, S), dtype=torch.int32, device=dev)
-
     layers = [bb.layer_params(params, l) for l in range(L)]
     token, lens, active = state.token, state.lens, state.active
     for i in range(S):
-        positions = (lens - state.pad)[:, None]  # RoPE: real tokens before this one
-        cos, sin = bb.rope_tables(Dh, cfg.rope_theta, positions)
-        x = params["embed"].to(dtype)[token.long()[:, None]]
-        for l, lp in enumerate(layers):
-            h = bb.rms_norm(x, lp["attn_norm"], cfg.rms_norm_eps)
-            q, k, v = bb._qkv(cfg, lp, h, cos, sin)
+        def attend(l, q, k, v, i=i):
             # write-then-attend: column i is written before the kernel reads [0, i]
-            stag_k[l, :, i], stag_ks[l, :, i] = bb.quantize_kv(k[:, 0].reshape(B, KD))
-            stag_v[l, :, i], stag_vs[l, :, i] = bb.quantize_kv(v[:, 0].reshape(B, KD))
-            a = attn_ops.decode_attention_staged(
-                q[:, 0].reshape(B, K, G, Dh).contiguous(), cache.k, cache.v, cache.k_scale,
-                cache.v_scale, stag_k, stag_v, stag_ks, stag_vs, l, i, base, state.pad)
-            x = x + bb._mm(a.to(x.dtype).reshape(B, 1, cfg.q_dim), lp["wo"]).to(x.dtype)
-            x = bb._mlp(cfg, lp, x)
-        token, active, lens = _step_head(cfg, sampling, eos_id, params, state, x, lens + 1,
+            bb.write_kv(stag, l, (slice(None), i), k, v)
+            return attn_ops.decode_attention_staged(
+                q, cache.k, cache.v, cache.k_scale, cache.v_scale, stag.k, stag.v,
+                stag.k_scale, stag.v_scale, l, i, base, state.pad)
+
+        # RoPE position: the real tokens before this one
+        h = bb.decode_hidden(cfg, params, layers, token, lens - state.pad, attend)
+        token, active, lens = _step_head(cfg, sampling, eos_id, params, state, h, lens + 1,
                                          active, lens, n_steps)
         outs[:, i] = token
 
     # every column of every row active at segment start, even past an EOS
     attn_ops.reconcile_segment(cache.k, cache.v, cache.k_scale, cache.v_scale,
-                               stag_k, stag_v, stag_ks, stag_vs, base, active0)
+                               stag.k, stag.v, stag.k_scale, stag.v_scale, base, active0)
     state.token, state.lens, state.active = token, lens, active
     return state, outs
 
@@ -258,35 +221,20 @@ def _decode_steps_scatter(cfg, sampling, eos_id, n_steps, params, state):
     the staged path's oracle for int8), then `decode_attention`."""
     cache = state.cache
     B = state.token.shape[0]
-    dev = state.token.device
-    T = cache.max_len
-    K, G, Dh = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, cfg.head_dim
-    dtype = bb.torch_dtype(cfg.dtype)
-    ar = torch.arange(B, device=dev)
-    outs = torch.empty((B, n_steps), dtype=torch.int32, device=dev)
+    ar = torch.arange(B, device=state.token.device)
+    outs = torch.empty((B, n_steps), dtype=torch.int32, device=state.token.device)
     layers = [bb.layer_params(params, l) for l in range(cfg.n_layers)]
     for i in range(n_steps):
-        write_at = torch.clamp(state.lens, max=T - 1)  # [B] per-row write slot
-        cos, sin = bb.rope_tables(Dh, cfg.rope_theta, (write_at - state.pad)[:, None])
-        x = params["embed"].to(dtype)[state.token.long()[:, None]]
+        write_at = torch.clamp(state.lens, max=cache.max_len - 1)  # [B] per-row write slot
         lens_new = write_at + 1  # attend [pad, lens_new), the fresh token included
-        cols = write_at.long()
-        for l, lp in enumerate(layers):
-            h = bb.rms_norm(x, lp["attn_norm"], cfg.rms_norm_eps)
-            q, k, v = bb._qkv(cfg, lp, h, cos, sin)
-            kf, vf = k[:, 0].reshape(B, -1), v[:, 0].reshape(B, -1)
-            if cache.quantized:
-                cache.k[l, ar, cols], cache.k_scale[l, ar, cols] = bb.quantize_kv(kf)
-                cache.v[l, ar, cols], cache.v_scale[l, ar, cols] = bb.quantize_kv(vf)
-            else:
-                cache.k[l, ar, cols] = kf.to(cache.k.dtype)
-                cache.v[l, ar, cols] = vf.to(cache.v.dtype)
-            a = attn_ops.decode_attention(q[:, 0].reshape(B, K, G, Dh).contiguous(), cache.k,
-                                          cache.v, l, lens_new, state.pad, cache.k_scale,
-                                          cache.v_scale)
-            x = x + bb._mm(a.to(x.dtype).reshape(B, 1, cfg.q_dim), lp["wo"]).to(x.dtype)
-            x = bb._mlp(cfg, lp, x)
+
+        def attend(l, q, k, v, cols=write_at.long(), lens_new=lens_new):
+            bb.write_kv(cache, l, (ar, cols), k, v)
+            return attn_ops.decode_attention(q, cache.k, cache.v, l, lens_new, state.pad,
+                                             cache.k_scale, cache.v_scale)
+
+        h = bb.decode_hidden(cfg, params, layers, state.token, write_at - state.pad, attend)
         state.token, state.active, state.lens = _step_head(
-            cfg, sampling, eos_id, params, state, x, lens_new, state.active, state.lens, n_steps)
+            cfg, sampling, eos_id, params, state, h, lens_new, state.active, state.lens, n_steps)
         outs[:, i] = state.token
     return state, outs

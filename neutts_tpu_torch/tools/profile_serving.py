@@ -5,18 +5,23 @@
 W8A8 Air with an int8 KV cache, 128 slots and 32-step segments (the
 configuration of chip_smoke.py's serving phase): fills every slot with
 512-token speech prompts and a budget no segment here exhausts, runs one
-warm-up tick, then profiles with torch.profiler (1) one engine tick, which
-is one staged decode segment and its readback, and (2) one admission group
-of 64 prompts (prefill_slots, Lp 512). Prints, per window: wall ms, the
-device's busy and idle share, and the kernels with the most device time,
-then the whole report as one JSON line. Needs one GPU.
+warm-up tick and three ticks timed without the profiler, then profiles with
+torch.profiler (1) one engine tick, which is one staged decode segment and
+its readback, and (2) one admission group of 64 prompts (prefill_slots, Lp
+512). Prints, per window: wall ms, the device's busy and idle share, and the
+kernels with the most device time, then the whole report as one JSON line.
+The profiler slows the host, so the tick also reports its idle share
+against the median wall time of the unprofiled ticks of the same process.
+Needs one GPU.
 """
 
 from __future__ import annotations
 
 import json
+import statistics
 import subprocess
 import sys
+import time
 
 import torch
 
@@ -27,7 +32,7 @@ from neutts_tpu_torch.runtime import batching
 from neutts_tpu_torch.serving import Engine
 from neutts_tpu_torch.tools.profile_decode import _window
 
-N_SLOTS, SEGMENT, LP, GROUP = 128, 32, 512, 64
+N_SLOTS, SEGMENT, LP, GROUP, UNPROFILED = 128, 32, 512, 64, 3
 
 
 def main() -> int:
@@ -54,10 +59,20 @@ def main() -> int:
     for p in prompts:
         eng.submit(p, max_new=1000)
     eng.step()  # admits every slot and runs one segment (warm-up)
-    report = {"gpu": smi, "n_slots": N_SLOTS, "segment_steps": SEGMENT,
-              "tick": _window(eng.step, f"engine tick: one {SEGMENT}-step segment, "
-                                        f"{N_SLOTS} active slots")}
-    report["tick"]["ms_per_step"] = report["tick"]["wall_ms"] / SEGMENT
+    walls = []
+    for _ in range(UNPROFILED):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.step()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    tick = _window(eng.step, f"engine tick: one {SEGMENT}-step segment, {N_SLOTS} active slots")
+    tick["ms_per_step"] = tick["wall_ms"] / SEGMENT
+    tick["unprofiled_wall_ms"] = walls
+    tick["idle_share_unprofiled"] = 1.0 - tick["device_busy_ms"] / statistics.median(walls)
+    print(f"unprofiled ticks: {', '.join(f'{w:.1f}' for w in walls)} ms; idle against their "
+          f"median {100 * tick['idle_share_unprofiled']:.1f}%")
+    report = {"gpu": smi, "n_slots": N_SLOTS, "segment_steps": SEGMENT, "tick": tick}
 
     toks = torch.tensor(prompts[:GROUP], dtype=torch.int32, device=dev)
     lens = torch.full((GROUP,), LP, dtype=torch.int32, device=dev)

@@ -147,10 +147,10 @@ def _admit(params, cfg, prompts, Lp, n_slots, pad_to=None):
                                   torch.tensor([s for s, _ in group], dtype=torch.int32))
 
 
-@pytest.mark.parametrize("kv_dtype,Lp", [("float32", 8), ("int8", 64)])
+@pytest.mark.parametrize("kv_dtype,Lp", [("float32", 8), ("int8", 64), ("int8", 8)])
 def test_prefill_slots_duplicate_padding_idempotent(params, kv_dtype, Lp):
     """Duplicated trailing rows (group padding) leave the same state as the
-    real rows alone; Lp 64 with int8 takes the scatter_prefill write."""
+    real rows alone; with int8 every bucket takes the scatter_prefill write."""
     cfg = CFG.scaled(kv_dtype=kv_dtype)
     prompts = [[5, 6, 7], [8, 9, 1, 2]]
     plain = _admit(params, cfg, prompts, Lp, 4)
@@ -159,6 +159,41 @@ def test_prefill_slots_duplicate_padding_idempotent(params, kv_dtype, Lp):
         assert torch.equal(getattr(plain, name), getattr(padded, name)), name
     assert torch.equal(plain.cache.k, padded.cache.k)
     assert torch.equal(plain.cache.v, padded.cache.v)
+
+
+@pytest.mark.parametrize("kv_dtype", ["float32", "int8"])
+def test_prefill_slot_matches_jax(jparams, params, kv_dtype):
+    """Single-request admission into slot 1 of 3 against the JAX
+    `prefill_slot` on the same weights: equal per-slot state, the cache's
+    attended slots [pad, T) within f32 rounding (int8: within one
+    quantization step). Left-pad slots are never attended, and past the
+    first layer their values depend on how a fully masked query row is
+    handled."""
+    from neutts_tpu.runtime import batching as jbatching
+
+    cfg, jc = CFG.scaled(kv_dtype=kv_dtype), JCFG.scaled(kv_dtype=kv_dtype)
+    prompt, Lp = [9, 2, 6, 5, 3], 16
+    toks = np.zeros((Lp,), np.int32)
+    toks[Lp - len(prompt):] = prompt
+    scfg = dict(greedy=True, min_new_tokens=1)
+    t = batching.prefill_slot(cfg, config.SamplingConfig(**scfg), EOS, params,
+                              batching.SlotState.create(cfg, 3, "cpu"),
+                              torch.from_numpy(toks), len(prompt), 1)
+    j = jbatching.prefill_slot(jc, jcfg.SamplingConfig(**scfg), EOS, jparams,
+                               jbatching.SlotState.create(jc, 3, jax.random.PRNGKey(0)),
+                               jnp.asarray(toks), jnp.int32(len(prompt)), jnp.int32(1))
+    for name in ("token", "lens", "pad", "prompt_lens", "active"):
+        np.testing.assert_array_equal(getattr(t, name).numpy(), np.asarray(getattr(j, name)),
+                                      err_msg=name)
+    pad = Lp - len(prompt)
+    for name, scale in (("k", "k_scale"), ("v", "v_scale")):
+        tv, jv = getattr(t.cache, name).float(), np.asarray(getattr(j.cache, name), np.float32)
+        if t.cache.quantized:
+            tv = tv * getattr(t.cache, scale)[..., None]
+            jv = jv * np.asarray(getattr(j.cache, scale))[..., None]
+        tv, jv = tv[:, :, pad:], jv[:, :, pad:]
+        np.testing.assert_allclose(tv.numpy(), jv, atol=0.15 if t.cache.quantized else 1e-4,
+                                   rtol=0.05 if t.cache.quantized else 1e-4)
 
 
 def test_staged_decode_matches_scatter_path(params):
