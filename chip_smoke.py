@@ -8,18 +8,23 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      convolutions would otherwise run in TF32 through cuDNN);
   2. build every CUDA kernel of the port from csrc/ (one nvcc per source,
      all started together);
-  3. each kernel against its plain PyTorch version at the Air shapes of the
-     main paths: max error vs tolerance (exact for the two slot copies),
-     kernel / plain / library times and the card's bound for the same work;
-     then the whole backbone, and a small serving Engine, on the GPU against
-     the CPU (plain versions) on a small f32 model;
+  3. each kernel mode against its plain PyTorch version at the Air shapes of
+     the main paths (bf16, int8 and int4 caches): max error vs tolerance
+     (exact for the four slot copies), kernel / plain / library times and
+     the card's bound for the same work; then the whole backbone, and a
+     small serving Engine, on the GPU against the CPU (plain versions) on a
+     small f32 model, with f32, int8 and int4 caches;
   4. main path, W8A8: NeuTTS.initialize_random(AIR, CODEC, quantize="int8")
      with an int8 KV cache, infer_batch over 8 prompts (seeded random
      weights, sampling constrained to speech tokens);
   5. main path, default: bf16 weights and KV cache, one infer;
   6. serving, W8A8: Engine.run over 320 requests of 380-512 prompt tokens
      into 128 slots (int8 KV: staged decode, reconcile, scatter-prefill);
-  7. serving, default: bf16 weights and KV, 16 slots, 40 requests.
+  7. serving, default: bf16 weights and KV, 16 slots, 40 requests;
+  8. main path, W8A8 with kv_dtype="auto" (the int4 cache): infer_batch over
+     the 8 prompts of phase 4;
+  9. serving, W8A8 with kv_dtype="auto": the mix of phase 6 (int4 KV: staged
+     int4 decode, reconcile4, scatter-prefill4).
 Each main path runs with the launch counts set to 0 just before it and read
 just after. Before the last two lines: the report, the nvidia-smi card line
 and the JSON object {"kernels": [...]}; the last line is {"ok": true,
@@ -30,6 +35,7 @@ run without the rest of the repository.
 
 from __future__ import annotations
 
+import gc
 import json
 import subprocess
 import sys
@@ -366,13 +372,168 @@ def main() -> int:
     del got, want, work, new, psrc, ck, cv, ks, vs, stag, bufs
     torch.cuda.empty_cache()
 
+    # --- int4 modes: packed nibble pairs [.., T/2, KD], deinterleaved scales ---------
+    def quantized4(*shape):
+        """Packed int4 values [.., T/2, KD] and deinterleaved scales [.., T] of
+        unit-normal K/V rows, one layer at a time."""
+        p4 = torch.empty((*shape[:-2], shape[-2] // 2, shape[-1]), dtype=torch.int8, device=dev)
+        sc = torch.empty(shape[:-1], dtype=torch.float32, device=dev)
+        for lyr in range(shape[0]):
+            q4, s4 = bb.quantize_kv4(randn(*shape[1:]))
+            p4[lyr], sc[lyr] = bb.pack4_pairs(q4), bb.scales4_block(s4)
+        return p4, sc
+
+    def unquantized4(*shape):
+        """Unpacked int4 values and token-order scales (staging layout)."""
+        q4 = torch.empty(shape, dtype=torch.int8, device=dev)
+        sc = torch.empty(shape[:-1], dtype=torch.float32, device=dev)
+        for lyr in range(shape[0]):
+            q4[lyr], sc[lyr] = bb.quantize_kv4(randn(*shape[1:]))
+        return q4, sc
+
+    def row_tolerance(want):
+        # each row within 1% of its largest |output| (about 2.5 bf16 ulp
+        # there): one token dropped, misplaced or read from the wrong nibble
+        # moves a row past it
+        return 1e-2 * want.float().abs().amax(dim=(1, 2, 3), keepdim=True)
+
+    # decode attention over the stacked int4 Air cache: odd lens and pads
+    T = 1024
+    lens = torch.tensor([1001, 1024, 799, 960, 1023, 700, 1010, 901], dtype=torch.int32,
+                        device=dev)
+    pad = torch.tensor([0, 5, 13, 64, 1, 100, 7, 31], dtype=torch.int32, device=dev)
+    live = int((lens - pad).sum())
+    (ck, ks), (cv, vs) = quantized4(L, B, T, K * D), quantized4(L, B, T, K * D)
+    args = lambda i: (q, ck, cv, i % L, lens, pad, ks, vs)  # noqa: E731
+    got = attn.decode_attention(*args(L // 2))
+    want = attn.decode_attention_plain(*args(L // 2))
+    ms = time_ms(lambda i: attn.decode_attention(*args(i)), 200)
+    plain_ms = time_ms(lambda i: attn.decode_attention_plain(*args(i)), 10)
+    lk = bb.dequant_kv4(ck[L // 2], ks[L // 2]).to(torch.bfloat16)
+    lv = bb.dequant_kv4(cv[L // 2], vs[L // 2]).to(torch.bfloat16)
+    lk = lk.reshape(B, T, K, D).transpose(1, 2).repeat_interleave(G, 1)
+    lv = lv.reshape(B, T, K, D).transpose(1, 2).repeat_interleave(G, 1)
+    sdpa_mask = ((tmask[None] < lens[:, None]) & (tmask[None] >= pad[:, None]))[:, None, None]
+    lib_ms = time_ms(lambda i: torch.nn.functional.scaled_dot_product_attention(
+        qs, lk, lv, attn_mask=sdpa_mask), 200)
+    # int4: half a byte per value (K and V), the same 4-byte scales as int8
+    record("decode_attention_int4", got, want, row_tolerance(want), ms, plain_ms, lib_ms,
+           2 * B * H * D * 2 + live * (K * D + 8) + 8 * B, 4.0 * H * D * live, PEAK_BF16,
+           "neutts_tpu/ops/attention.py:99", "neutts_tpu_torch/csrc/decode_attention.cu")
+    del ck, cv, ks, vs, lk, lv, got, want
+
+    # staged decode attention at the int4 serving shapes: T = 2560, ragged
+    # even bases (8 rows empty), odd pads, staging step 17
+    Ts4 = batching.slot_cache_len(cfg.scaled(kv_dtype="int4"))
+    (ck, ks), (cv, vs) = quantized4(L, Bs, Ts4, KD), quantized4(L, Bs, Ts4, KD)
+    (sk4, sks4), (sv4, svs4) = unquantized4(L, Bs, S, KD), unquantized4(L, Bs, S, KD)
+    stag = (sk4, sv4, staging_scales(sks4), staging_scales(svs4))
+    base_np = rng.integers(0, 1025, Bs) * 2
+    base_np[:8] = 0
+    pad_np = np.minimum(base_np, rng.integers(0, 100, Bs) * 2 + 1)
+    base = torch.tensor(base_np, dtype=torch.int32, device=dev)
+    spad = torch.tensor(pad_np, dtype=torch.int32, device=dev)
+    live = int((base_np - pad_np).sum())
+    sargs = lambda i: (sq, ck, cv, ks, vs, *stag, i % L, step, base, spad)  # noqa: E731
+    got = attn.decode_attention_staged(*sargs(L // 2))
+    want = attn.decode_attention_staged_plain(*sargs(L // 2))
+    ms = time_ms(lambda i: attn.decode_attention_staged(*sargs(i)), 200)
+    plain_ms = time_ms(lambda i: attn.decode_attention_staged_plain(*sargs(i)), 5)
+    lyr = L // 2
+    lk = torch.cat([bb.dequant_kv4(ck[lyr], ks[lyr]),
+                    stag[0][lyr].float() * stag[2][lyr][:, :S, None]], dim=1)
+    lv = torch.cat([bb.dequant_kv4(cv[lyr], vs[lyr]),
+                    stag[1][lyr].float() * stag[3][lyr][:, :S, None]], dim=1)
+    lk = lk.to(torch.bfloat16).reshape(Bs, Ts4 + S, K, D).transpose(1, 2).repeat_interleave(G, 1)
+    lv = lv.to(torch.bfloat16).reshape(Bs, Ts4 + S, K, D).transpose(1, 2).repeat_interleave(G, 1)
+    tt = torch.arange(Ts4 + S, device=dev)
+    smask = (((tt[None] < base[:, None]) & (tt[None] >= spad[:, None]))
+             | ((tt[None] >= Ts4) & (tt[None] <= Ts4 + step)))[:, None, None]
+    lib_ms = time_ms(lambda i: torch.nn.functional.scaled_dot_product_attention(
+        lq, lk, lv, attn_mask=smask), 100)
+    n_stag = Bs * (step + 1)
+    record("decode_attention_staged_int4", got, want, row_tolerance(want), ms, plain_ms, lib_ms,
+           2 * Bs * H * D * 2 + live * (KD + 8) + n_stag * (2 * KD + 8) + 8 * Bs,
+           4.0 * H * D * (live + n_stag), PEAK_BF16, "neutts_tpu/ops/attention.py:548",
+           "neutts_tpu_torch/csrc/staged_attention.cu")
+    del lk, lv, got, want
+
+    # int4 segment reconcile: bases multiples of 16, about half the rows active
+    bufs = (ck, cv, ks, vs)
+    rbase_np = rng.integers(0, (Ts4 - S) // 16 + 1, Bs) * 16
+    rbase = torch.tensor(rbase_np, dtype=torch.int32, device=dev)
+    ract_np = rng.random(Bs) < 0.5
+    ract = torch.tensor(ract_np, device=dev)
+    got = attn.reconcile_segment4(*(b.clone() for b in bufs), *stag, rbase, ract)
+    want = attn.reconcile_segment4_plain(*(b.clone() for b in bufs), *stag, rbase, ract)
+    work = [b.clone() for b in bufs]
+    ms = time_ms(lambda i: attn.reconcile_segment4(*work, *stag, rbase, ract), 100)
+    plain_ms = time_ms(lambda i: attn.reconcile_segment4_plain(*work, *stag, rbase, ract), 5)
+    # library: scatter_ of the packed staging bytes along the byte axis and of
+    # the scales along their deinterleaved columns; inactive rows scatter
+    # their own current values (packing and gathering outside the timing)
+    bcols = ((rbase[:, None] >> 1) + torch.arange(S // 2, device=dev)).long()
+    scols = bb.deint4_index(rbase[:, None] + torch.arange(S, device=dev), Ts4 // 2).long()
+    idx_v = bcols[None, :, :, None].expand(L, Bs, S // 2, KD)
+    idx_s = scols[None].expand(L, Bs, S)
+    keep = ract[None, :, None]
+    src = [torch.where(keep[..., None], bb.pack4_pairs(stag[0]), work[0].gather(2, idx_v)),
+           torch.where(keep[..., None], bb.pack4_pairs(stag[1]), work[1].gather(2, idx_v)),
+           torch.where(keep, stag[2][..., :S], work[2].gather(2, idx_s)),
+           torch.where(keep, stag[3][..., :S], work[3].gather(2, idx_s))]
+
+    def lib_reconcile4(i):
+        for w, ix, sr in zip(work, (idx_v, idx_v, idx_s, idx_s), src):
+            w.scatter_(2, ix, sr)
+
+    lib_ms = time_ms(lib_reconcile4, 100)
+    n_act = int(ract_np.sum())
+    # per token of an active row: 2 staged values read, 1 packed byte
+    # written (K and V), 4-byte scales read and written
+    record("reconcile_segment4", got, want, 0, ms, plain_ms, lib_ms,
+           n_act * L * S * (3 * KD + 16) + 5 * Bs, 0.0, PEAK_INT8,
+           "neutts_tpu/ops/attention.py:1039", "neutts_tpu_torch/csrc/slot_copy.cu")
+    del got, want, src, idx_v
+
+    # int4 admission write: a group of 64 rows (8 duplicates), Lp 512, into the
+    # 128-slot T = 2560 cache: packed bytes and token-order scales
+    (nq4, nks), (nv4, nvs) = unquantized4(L, G8, Lp, KD), unquantized4(L, G8, Lp, KD)
+    new = [bb.pack4_pairs(nq4), bb.pack4_pairs(nv4), nks, nvs]
+    del nq4, nv4
+    for a in new:
+        a[:, G8 - 8:] = a[:, G8 - 9: G8 - 8]
+    got = attn.scatter_prefill4(*(b.clone() for b in bufs), *new, pslots, primary)
+    want = attn.scatter_prefill4_plain(*(b.clone() for b in bufs), *new, pslots, primary)
+    ms = time_ms(lambda i: attn.scatter_prefill4(*work, *new, pslots, primary), 100)
+    plain_ms = time_ms(lambda i: attn.scatter_prefill4_plain(*work, *new, pslots, primary), 5)
+    # library: index_copy_ of the primary rows' packed bytes, scatter_ of their
+    # deinterleaved scales on the flattened [L, B*T] rows (prepared outside
+    # the timing)
+    psrc = [a[:, prim] for a in new[:2]]
+    pcols = bb.deint4_index(torch.arange(Lp, device=dev), Ts4 // 2)
+    sidx = (dst_rows[:, None] * Ts4 + pcols).reshape(1, -1).expand(L, -1).contiguous()
+    ssrc = [a[:, prim].reshape(L, -1) for a in new[2:]]
+
+    def lib_prefill4(i):
+        for w, sr in zip(work[:2], psrc):
+            w[:, :, :Lp // 2].index_copy_(1, dst_rows, sr)
+        for w, sr in zip(work[2:], ssrc):
+            w.view(L, -1).scatter_(1, sidx, sr)
+
+    lib_ms = time_ms(lib_prefill4, 100)
+    record("scatter_prefill4", got, want, 0, ms, plain_ms, lib_ms,
+           2 * len(prim) * L * Lp * (KD + 8) + 5 * G8, 0.0, PEAK_INT8,
+           "neutts_tpu/ops/attention.py:1290", "neutts_tpu_torch/csrc/slot_copy.cu")
+    del got, want, work, new, psrc, ssrc, ck, cv, ks, vs, stag, bufs
+    torch.cuda.empty_cache()
+
     # the whole backbone, GPU (kernels) against CPU (plain versions), small f32 model
     tiny = config.TINY
     p_cpu = bb.init_params(tiny, seed=3, device="cpu")
     p_gpu = tree_to(p_cpu, dev)
     prompts = [[5, 6, 7, 8, 9, 10, 11, 12], [13, 14, 15]]
     worst = 0.0
-    for kv in ("float32", "int8"):
+    for kv in ("float32", "int8", "int4"):
         c = tiny.scaled(kv_dtype=kv)
         outs = []
         for d, p in (("cpu", p_cpu), (dev, p_gpu)):
@@ -395,7 +556,7 @@ def main() -> int:
     # a small f32 serving Engine, GPU (kernels) against CPU (plain versions)
     eos_t = tiny.layout.speech_gen_end
     tprompts = [[3, 1, 4, 1, 5], [9, 2, 6], [2, 7, 1, 8, 2, 8], [11, 12]]
-    for kv in ("int8", "float32"):
+    for kv in ("int8", "float32", "int4"):  # int4 rounds the segment up to 16 steps
         toks_by_dev = []
         for d in ("cpu", dev):
             eng = Engine(tiny.scaled(kv_dtype=kv), p_cpu, eos_id=eos_t, n_slots=2,
@@ -540,7 +701,11 @@ def main() -> int:
               f"{info['collect_ms_per_segment']:.1f}) | admission host "
               f"{info['admit_host_ms_total']:.0f} ms | useful {info['useful_frac']:.3f}, "
               f"tax {info['tax']} | peak {info['peak_mem_gb']:.1f} GB | launches {counts}")
+        # the timing wrappers stored on the engine close over its own bound
+        # methods: collect the cycle, or its cache and weights stay allocated
+        # and inflate the next phase's peak memory
         del eng
+        gc.collect()
         torch.cuda.empty_cache()
         return info
 
@@ -556,8 +721,28 @@ def main() -> int:
     require(s16["launches"]["decode_attention_staged"] == 0, "default serving ran staged decode")
     report["phases"]["bf16_serving"] = s16
 
+    # --- 8./9. the int4 cache: kv_dtype="auto" -------------------------------------------
+    tts = NeuTTS.initialize_random(config.AIR.scaled(kv_dtype="auto"), config.CODEC, seed=4,
+                                   device=dev, quantize="int8", sampling=sampling)
+    w4 = run_path("8", tts, 8)
+    for k in ("decode_attention_int4", "prefill_attention", "fused_qkv", "fused_mlp"):
+        require(w4["launches"][k] > 0, f"W8A8 auto main path never launched {k}")
+    for k in ("decode_attention_int8", "decode_attention_bf16"):
+        require(w4["launches"][k] == 0, f"W8A8 auto main path launched {k}")
+    report["phases"]["w8a8_auto_infer_batch"] = w4
+    del tts
+    torch.cuda.empty_cache()
+    s4 = run_serving("9", config.AIR.scaled(kv_dtype="auto"), True, 128, 320, 150, 250, 5)
+    for k in ("decode_attention_staged_int4", "reconcile_segment4", "scatter_prefill4",
+              "prefill_attention", "fused_qkv", "fused_mlp"):
+        require(s4["launches"][k] > 0, f"W8A8 auto serving never launched {k}")
+    for k in ("decode_attention_staged", "reconcile_segment", "scatter_prefill",
+              "decode_attention_int4", "decode_attention_int8", "decode_attention_bf16"):
+        require(s4["launches"][k] == 0, f"W8A8 auto serving launched {k}")
+    report["phases"]["w8a8_auto_serving"] = s4
+
     # --- report ------------------------------------------------------------------------
-    paths = (w8, d16, s8, s16)
+    paths = (w8, d16, s8, s16, w4, s4)
     for key, r in results.items():
         r["launches"] = sum(ph["launches"][key] for ph in paths)
     kernels = {"kernels": list(results.values())}

@@ -121,8 +121,8 @@ class BackboneConfig:
     n_text_tokens: int = QWEN25_TEXT_TOKENS
     dtype: str = "bfloat16"
     kv_dtype: str = "bfloat16"  # "bfloat16" | "int8" (per-token scales) |
-    # "int4" (nibble-packed pairs, per-token-per-head scales — 4x bf16 cache
-    # capacity and half the int8 decode-attention bandwidth) | "auto"
+    # "int4" (nibble-packed pairs, per-token scales — 4x bf16 cache
+    # capacity and half the int8 decode-attention bytes) | "auto"
     # (resolved per call site by expected total context: int8 below
     # KV_AUTO_CROSSOVER tokens, int4 at/above — see resolve_kv_dtype)
     # dtype of the decode-loop logits buffer (untrimmed LM-head path only).
@@ -160,14 +160,12 @@ class BackboneConfig:
 
 
 # kv_dtype="auto" crossover (total context tokens): int8 below, int4 at or
-# above. r5 re-measurement moved this to 0 — int4 decode is now FASTER at
-# every context (+9.6% at ctx 128-384, +6.4% at 512-768, +7.8% at 1536;
-# bench.py A/Bs in KV_AUTO_r05.json) after the hi-only nibble decode and
-# the staged-int4 serving work, and serving is at parity or better
-# (SERVING_CAPACITY_r05.json). The r3 "int4 loses below ctx 1024" result
-# is obsolete. int8 stays the DEFAULT kv_dtype for its finer quantization
-# (15 vs 255 levels); "auto" is the explicit performance mode. The
-# crossover mechanism is kept for hardware where the tradeoff returns.
+# above. The JAX package set it to 0 from its own TPU v5e measurements
+# (KV_AUTO_r05.json, which say nothing about this port); the port keeps the
+# same value so that both packages resolve "auto" alike, to int4. int8
+# stays the DEFAULT kv_dtype for its finer quantization (255 vs 15
+# levels); "auto" is the explicit performance mode. The H100's int4 and
+# int8 times are in PERF.md.
 KV_AUTO_CROSSOVER = 0
 
 

@@ -7,8 +7,9 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-// dtype codes shared with the Python wrappers (ops/_build.py callers)
-enum DType { DT_F32 = 0, DT_BF16 = 1, DT_I8 = 2 };
+// dtype codes shared with the Python wrappers (ops/_build.py callers);
+// DT_I4 is a cache of int4 pairs packed into int8 bytes
+enum DType { DT_F32 = 0, DT_BF16 = 1, DT_I8 = 2, DT_I4 = 3 };
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }

@@ -7,14 +7,17 @@ projections as {"q": int8 [.., D, F], "s": f32 [.., F]} dicts, the fused
 int8 QKV copy under "wqkv". Layers run in a Python loop over that axis.
 
 The KV cache keeps the JAX layout, [L, B, T, K*D] values with [L, B, T] f32
-scales in int8 mode, and is written IN PLACE where the JAX code used
-`lax.dynamic_update_slice` on a scan carry. Prompts are left-padded, so
-every row's decode write lands at one shared slot.
+scales in int8 mode, nibble-pair-packed bytes [L, B, T/2, K*D] with
+deinterleaved [L, B, T] scales and [L, B, K*D] prev registers in int4 mode,
+and is written IN PLACE where the JAX code used `lax.dynamic_update_slice`
+on a scan carry. Prompts are left-padded, so every row's decode write lands
+at one shared slot.
 
 Kernels on this path (ops/): `prefill_attention` for every prefill,
-`decode_attention` for every layer of every decode step, and — for int8
-weights at B*S >= FUSED_MIN_M token rows — `fused_qkv` and `fused_mlp`.
-On CPU tensors each of them runs its plain PyTorch version.
+`decode_attention` (bf16, int8 or int4 cache) for every layer of every
+decode step, and — for int8 weights at B*S >= FUSED_MIN_M token rows —
+`fused_qkv` and `fused_mlp`. On CPU tensors each of them runs its plain
+PyTorch version.
 """
 
 from __future__ import annotations
@@ -220,41 +223,61 @@ def _logits_speech(cfg: BackboneConfig, params: Params, x: torch.Tensor):
 @dataclass
 class KVCache:
     """Preallocated cache: k/v [L, B, T, K*D]; in int8 mode (cfg.kv_dtype ==
-    "int8") int8 values with per-token symmetric f32 scales [L, B, T]."""
+    "int8") int8 values with per-token symmetric f32 scales [L, B, T].
+
+    int4 mode (cfg.kv_dtype == "int4"): k/v hold ARITHMETIC-coded nibble
+    pairs [L, B, T/2, K*D] (byte t2 = lo + 16*hi codes token 2*t2 as lo and
+    2*t2 + 1 as hi), per-token f32 scales DEINTERLEAVED in [L, B, T] (even
+    tokens' scales in [0, T/2), odd tokens' in [T/2, T)), and k_prev/v_prev
+    [L, B, K*D] int8: the int4 values of each row's last even-parity write,
+    which an odd-parity write pairs with. The mode is flagged by k_prev."""
 
     k: torch.Tensor
     v: torch.Tensor
     k_scale: Optional[torch.Tensor] = None
     v_scale: Optional[torch.Tensor] = None
+    k_prev: Optional[torch.Tensor] = None
+    v_prev: Optional[torch.Tensor] = None
 
     @staticmethod
     def create(cfg: BackboneConfig, batch: int, max_len: Optional[int] = None,
                device="cuda", dtype=None) -> "KVCache":
         T = max_len or cfg.max_context
-        shape = (cfg.n_layers, batch, T, cfg.n_kv_heads * cfg.head_dim)
+        L, KD = cfg.n_layers, cfg.n_kv_heads * cfg.head_dim
+        shape = (L, batch, T, KD)
+
+        def zeros(shape, dt):
+            return torch.zeros(shape, dtype=dt, device=device)
+
         if cfg.kv_dtype == "int8":
-            sshape = (cfg.n_layers, batch, T)
-            return KVCache(
-                k=torch.zeros(shape, dtype=torch.int8, device=device),
-                v=torch.zeros(shape, dtype=torch.int8, device=device),
-                k_scale=torch.zeros(sshape, dtype=torch.float32, device=device),
-                v_scale=torch.zeros(sshape, dtype=torch.float32, device=device),
-            )
-        if cfg.kv_dtype in ("int4", "auto"):
-            raise NotImplementedError(
-                f"kv_dtype={cfg.kv_dtype!r}: the int4 KV cache comes in a later slice of "
-                "the PyTorch port (ROADMAP Queue 1 item 3); use 'bfloat16' or 'int8'")
+            return KVCache(k=zeros(shape, torch.int8), v=zeros(shape, torch.int8),
+                           k_scale=zeros((L, batch, T), torch.float32),
+                           v_scale=zeros((L, batch, T), torch.float32))
+        if cfg.kv_dtype == "int4":
+            if T % 2:
+                raise ValueError(f"an int4 cache packs token pairs: max_len {T} must be even")
+            return KVCache(k=zeros((L, batch, T // 2, KD), torch.int8),
+                           v=zeros((L, batch, T // 2, KD), torch.int8),
+                           k_scale=zeros((L, batch, T), torch.float32),
+                           v_scale=zeros((L, batch, T), torch.float32),
+                           k_prev=zeros((L, batch, KD), torch.int8),
+                           v_prev=zeros((L, batch, KD), torch.int8))
+        if cfg.kv_dtype == "auto":
+            raise ValueError("kv_dtype='auto' must be resolved first (config.resolve_kv_dtype)")
         dtype = dtype or torch_dtype(cfg.dtype)
-        return KVCache(k=torch.zeros(shape, dtype=dtype, device=device),
-                       v=torch.zeros(shape, dtype=dtype, device=device))
+        return KVCache(k=zeros(shape, dtype), v=zeros(shape, dtype))
 
     @property
     def quantized(self) -> bool:
         return self.k_scale is not None
 
     @property
+    def int4(self) -> bool:
+        return self.k_prev is not None
+
+    @property
     def max_len(self) -> int:
-        return self.k.shape[2]
+        return self.k.shape[2] * (2 if self.int4 else 1)
 
 
 def quantize_kv(x: torch.Tensor):
@@ -265,16 +288,120 @@ def quantize_kv(x: torch.Tensor):
     return q.to(torch.int8), scale
 
 
-def write_kv(cache: KVCache, l: int, at: tuple, kf: torch.Tensor, vf: torch.Tensor) -> None:
+# --- int4 KV helpers (JAX backbone.py:354-450) ----------------------------------------
+
+
+def quantize_kv4(x: torch.Tensor):
+    """x [..., KD] -> (int4 values in int8 [..., KD], f32 scales [...]):
+    symmetric per-token scales amax/7, round-half-even, 15 levels."""
+    xf = x.float()
+    scale = torch.clamp(xf.abs().amax(dim=-1), min=1e-8) / 7.0
+    q = torch.clamp(torch.round(xf / scale[..., None]), -7, 7)
+    return q.to(torch.int8), scale
+
+
+def pack4(lo: torch.Tensor, hi: torch.Tensor) -> torch.Tensor:
+    """Two int4-valued ([-7, 7]) int8 tensors -> ARITHMETIC-coded bytes
+    lo + 16*hi (range [-119, 119])."""
+    return lo + 16 * hi
+
+
+def unpack4(b: torch.Tensor):
+    """Arithmetic-coded bytes -> (lo, hi) int4 values as int8. The shift is
+    arithmetic on the signed byte: hi = floor((b + 8) / 16)."""
+    hi = (b + 8) >> 4  # b + 8 <= 127: no overflow in int8
+    lo = b - 16 * hi
+    return lo, hi
+
+
+def pack4_pairs(q: torch.Tensor) -> torch.Tensor:
+    """q [..., S, KD] int4-in-int8 (S even) -> packed [..., S/2, KD]."""
+    return pack4(q[..., 0::2, :], q[..., 1::2, :])
+
+
+def deint4_index(t, half: int):
+    """Deinterleaved scale column of token t in a [.., T] scale row whose
+    first `half` entries hold even tokens and the rest odd tokens."""
+    return (t >> 1) + (t & 1) * half
+
+
+def scales4_block(sc: torch.Tensor) -> torch.Tensor:
+    """sc [..., S] per-token scales (S even) -> deinterleaved [..., S] (even
+    tokens first, then odd), the KVCache int4 scale layout."""
+    return torch.cat([sc[..., 0::2], sc[..., 1::2]], dim=-1)
+
+
+def dequant_kv4(cq: torch.Tensor, sc: torch.Tensor) -> torch.Tensor:
+    """Packed [B, T/2, KD] + deinterleaved scales [B, T] -> f32 [B, T, KD]
+    (token t = 2*t2 + parity)."""
+    B, T2, KD = cq.shape
+    lo, hi = unpack4(cq)
+    q = torch.stack([lo, hi], dim=2).reshape(B, 2 * T2, KD).float()
+    st = torch.stack([sc[:, :T2], sc[:, T2:]], dim=2).reshape(B, 2 * T2)
+    return q * st[..., None]
+
+
+def write_kv(cache: KVCache, l: int, at: tuple, kf: torch.Tensor, vf: torch.Tensor,
+             quantize=quantize_kv) -> None:
     """Write K/V values kf/vf [..., KD] at layer l, positions `at` (an index
     into the [B, T] axes: a slot, a slot range, or per-row (rows, cols)), in
-    place; quantized per token in int8 mode."""
-    if cache.quantized:
-        cache.k[(l, *at)], cache.k_scale[(l, *at)] = quantize_kv(kf)
-        cache.v[(l, *at)], cache.v_scale[(l, *at)] = quantize_kv(vf)
+    place; quantized per token by `quantize` in int8 mode (`quantize_kv4`
+    for the int4 staging buffers, which hold unpacked int4 values).
+
+    int4 cache (`write_kv4_rows` takes per-row slots): `at` is (rows, a
+    slice from 0 of even length) for a prompt block, whose packed pairs and
+    deinterleaved scales land at once and whose last token seeds the prev
+    registers; or (slice(None), t) for one token at a shared slot t: an even
+    t writes lo alone (the hi nibble is beyond every row's length), an odd t
+    writes prev + 16*q; prev takes q (JAX `write_kv_token`)."""
+    if cache.int4:
+        rows, cols = at
+        half = cache.k_scale.shape[2] // 2
+        kq, ksc = quantize_kv4(kf)
+        vq, vsc = quantize_kv4(vf)
+        if isinstance(cols, slice):
+            n = kf.shape[-2]
+            if cols.start not in (0, None) or n % 2:
+                raise ValueError(f"an int4 cache takes even prompt blocks from slot 0, got {n}")
+            for buf, scales, prev, q, sc in ((cache.k, cache.k_scale, cache.k_prev, kq, ksc),
+                                             (cache.v, cache.v_scale, cache.v_prev, vq, vsc)):
+                buf[l, rows, : n // 2] = pack4_pairs(q)
+                scales[l, rows, : n // 2] = sc[..., 0::2]
+                scales[l, rows, half : half + n // 2] = sc[..., 1::2]
+                prev[l, rows] = q[..., -1, :]
+            return
+        t2, sidx = cols >> 1, deint4_index(cols, half)
+        for buf, scales, prev, q, sc in ((cache.k, cache.k_scale, cache.k_prev, kq, ksc),
+                                         (cache.v, cache.v_scale, cache.v_prev, vq, vsc)):
+            buf[l, rows, t2] = q if cols % 2 == 0 else pack4(prev[l, rows], q)
+            scales[l, rows, sidx] = sc
+            prev[l, rows] = q
+    elif cache.quantized:
+        cache.k[(l, *at)], cache.k_scale[(l, *at)] = quantize(kf)
+        cache.v[(l, *at)], cache.v_scale[(l, *at)] = quantize(vf)
     else:
         cache.k[(l, *at)] = kf.to(cache.k.dtype)
         cache.v[(l, *at)] = vf.to(cache.v.dtype)
+
+
+def write_kv4_rows(cache: KVCache, l: int, cols: torch.Tensor, kf: torch.Tensor,
+                   vf: torch.Tensor) -> None:
+    """int4 per-row token write (the serving direct-write path, JAX
+    batching.py:471-495): row b's token kf[b]/vf[b] [B, KD] at its own slot
+    cols[b]. An even slot writes lo alone, an odd one prev + 16*q; prev
+    takes q ONLY on even writes, so an inactive row parked at an odd slot,
+    which rewrites its byte every step, keeps pairing with the real token
+    before it instead of clobbering that token's nibble."""
+    rows = torch.arange(cols.shape[0], device=cols.device)
+    even = (cols & 1)[:, None] == 0
+    t2, sidx = cols >> 1, deint4_index(cols, cache.k_scale.shape[2] // 2)
+    for buf, scales, prev, x in ((cache.k, cache.k_scale, cache.k_prev, kf),
+                                 (cache.v, cache.v_scale, cache.v_prev, vf)):
+        q, sc = quantize_kv4(x)
+        p = prev[l]
+        buf[l, rows, t2] = torch.where(even, q, pack4(p, q))
+        scales[l, rows, sidx] = sc
+        prev[l] = torch.where(even, q, p)
 
 
 # --- blocks --------------------------------------------------------------------
@@ -328,11 +455,11 @@ def _block_fresh(cfg: BackboneConfig, lp: Params, x, cos, sin, pads):
 
 
 def prefill_hidden(cfg: BackboneConfig, params: Params, tokens: torch.Tensor,
-                   prompt_lens: torch.Tensor, dest: KVCache, at: tuple) -> torch.Tensor:
+                   prompt_lens: torch.Tensor, store) -> torch.Tensor:
     """Every layer over left-padded prompts [B, Lp] (true lengths
-    prompt_lens [B]); each layer's K/V [B, Lp, KD] goes to `dest` at `at`
-    (`write_kv`). Returns the final-normed hidden state of the last position
-    [B, D]."""
+    prompt_lens [B]); store(l, k, v) keeps layer l's K/V [B, Lp, KD] where
+    its caller holds the cache. Returns the final-normed hidden state of the
+    last position [B, D]."""
     B, Lp = tokens.shape
     dev = tokens.device
     pad = (Lp - prompt_lens).to(torch.int32)
@@ -342,16 +469,18 @@ def prefill_hidden(cfg: BackboneConfig, params: Params, tokens: torch.Tensor,
     x = params["embed"].to(torch_dtype(cfg.dtype))[tokens.long()]
     for l in range(cfg.n_layers):
         x, k, v = _block_fresh(cfg, layer_params(params, l), x, cos, sin, pad)
-        write_kv(dest, l, at, k.reshape(B, Lp, -1), v.reshape(B, Lp, -1))
+        store(l, k.reshape(B, Lp, -1), v.reshape(B, Lp, -1))
     return rms_norm(x[:, -1, :], params["final_norm"], cfg.rms_norm_eps)
 
 
 def prefill(cfg: BackboneConfig, params: Params, tokens: torch.Tensor,
             prompt_lens: torch.Tensor, cache: KVCache, speech_head: bool = False):
     """Left-padded prompts [B, Lp] (true lengths prompt_lens [B]) -> last
-    position logits [B, V]; writes slots [0, Lp) of `cache` in place."""
-    h = prefill_hidden(cfg, params, tokens, prompt_lens, cache,
-                       (slice(None), slice(0, tokens.shape[1])))
+    position logits [B, V]; writes slots [0, Lp) of `cache` in place (an
+    int4 cache needs an even Lp)."""
+    at = (slice(None), slice(0, tokens.shape[1]))
+    h = prefill_hidden(cfg, params, tokens, prompt_lens,
+                       lambda l, k, v: write_kv(cache, l, at, k, v))
     if speech_head:
         return _logits_speech(cfg, params, h), cache
     return _logits(cfg, params, h), cache

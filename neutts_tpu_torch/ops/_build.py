@@ -40,16 +40,21 @@ NVCC_FLAGS = (
 launches: Dict[str, int] = {
     "decode_attention_bf16": 0,  # float caches (bf16, or f32 in small tests)
     "decode_attention_int8": 0,
+    "decode_attention_int4": 0,
     "prefill_attention": 0,
     "fused_qkv": 0,
     "fused_mlp": 0,
     "decode_attention_staged": 0,
+    "decode_attention_staged_int4": 0,
     "reconcile_segment": 0,
+    "reconcile_segment4": 0,
     "scatter_prefill": 0,
+    "scatter_prefill4": 0,
 }
 
-# dtype codes of csrc/common.cuh
+# dtype codes of csrc/common.cuh; DT_I4 marks a cache of packed int4 pairs
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+DT_I4 = 3
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _fns: Dict[str, object] = {}

@@ -1,28 +1,35 @@
-"""Attention for the backbone and the serving engine's int8 KV cache.
+"""Attention for the backbone and the serving engine's quantized KV caches.
 
-Five functions, each with a CUDA kernel (`csrc/decode_attention.cu`,
+Seven functions, each with a CUDA kernel (`csrc/decode_attention.cu`,
 `csrc/prefill_attention.cu`, `csrc/staged_attention.cu`, `csrc/slot_copy.cu`)
 and a plain PyTorch version of the same function. The wrapper picks by the
 tensors' device alone: a CPU tensor takes the plain version, a CUDA tensor
 launches the kernel (or raises).
 
 * `decode_attention` — one layer of the stacked cache [L, B, T, K*D]
-  (bf16/f32 values, or int8 values with per-token f32 scales [L, B, T]);
+  (bf16/f32 values, or int8 values with per-token f32 scales [L, B, T], or
+  int4 nibble pairs [L, B, T/2, K*D] with deinterleaved scales [L, B, T]);
   query q [B, K, G, D] attends the slots [pad, lens) of its row.
 * `prefill_attention` — causal, left-pad-masked GQA self-attention over a
   fresh window: q [B, S, H, D], k/v [B, S, K, D], pad rows zeroed.
-* `decode_attention_staged` — the serving decode: settled int8 cache
-  [pad, base) plus the segment's staging columns [0, step].
-* `reconcile_segment` — folds a segment's staging into the cache slots
-  [base, base + S) of the rows active at segment start, in place.
-* `scatter_prefill` — writes an admission group's prompt K/V into the cache
-  rows `slots`, slots [0, Lp), first occurrence of each slot only, in place.
+* `decode_attention_staged` — the serving decode: settled int8 or int4
+  cache [pad, base) plus the segment's staging columns [0, step].
+* `reconcile_segment` / `reconcile_segment4` — fold a segment's staging
+  into the cache slots [base, base + S) of the rows active at segment
+  start, in place (int4: packing the staged pairs into bytes).
+* `scatter_prefill` / `scatter_prefill4` — write an admission group's
+  prompt K/V into the cache rows `slots`, slots [0, Lp), first occurrence
+  of each slot only, in place.
+
+An int4 cache is told from an int8 one as the JAX package tells it: its
+scale rows are twice as long as its byte axis (`is_int4`).
 
 Counterparts: `neutts_tpu.ops.attention.decode_attention_stacked`,
-`prefill_attention`, `decode_attention_staged`, `reconcile_segment` and
-`scatter_prefill` (the TPU kernels); `decode_attention_xla`,
-`backbone._attend_block_dense`, `decode_attention_staged_xla` and
-`reconcile_segment_xla` (their XLA oracles).
+`prefill_attention`, `decode_attention_staged`, `reconcile_segment`,
+`reconcile_segment4`, `scatter_prefill` and `scatter_prefill4` (the TPU
+kernels); `decode_attention_xla`, `backbone._attend_block_dense`,
+`decode_attention_staged_xla`, `reconcile_segment_xla` and
+`reconcile_segment4(use_pallas=False)` (their XLA oracles).
 """
 
 from __future__ import annotations
@@ -49,6 +56,20 @@ def _check_decode_geometry(name: str, G: int, D: int) -> None:
         raise ValueError(f"{name}: G={G}, D={D} exceed the kernel's shared memory")
 
 
+def is_int4(all_k, k_scale) -> bool:
+    """An int4 cache: scale rows twice the byte axis (JAX attention.py:389)."""
+    return k_scale is not None and k_scale.shape[-1] == 2 * all_k.shape[2]
+
+
+def _dequant_layer(all_c, scale, layer: int):
+    """f32 [B, T, KD] of one layer of an int8 or int4 cache."""
+    if is_int4(all_c, scale):
+        from neutts_tpu_torch.models.backbone import dequant_kv4
+
+        return dequant_kv4(all_c[layer], scale[layer])
+    return all_c[layer].float() * scale[layer][..., None]
+
+
 # --- decode ------------------------------------------------------------------
 
 
@@ -56,8 +77,9 @@ def decode_attention(q, all_k, all_v, layer: int, lens, pad, k_scale=None, v_sca
     """Flash-decode over layer `layer` of the stacked cache.
 
     q [B, K, G, D] (f32/bf16); all_k/all_v [L, B, T, K*D] in q's dtype, or
-    int8 with k_scale/v_scale [L, B, T] f32; lens/pad [B] int32. Returns
-    [B, K, G, D] in q's dtype."""
+    int8 with k_scale/v_scale [L, B, T] f32, or int4 nibble pairs
+    [L, B, T/2, K*D] with deinterleaved k_scale/v_scale [L, B, T]; lens/pad
+    [B] int32. Returns [B, K, G, D] in q's dtype."""
     if q.device.type == "cpu":
         return decode_attention_plain(q, all_k, all_v, layer, lens, pad, k_scale, v_scale)
     if q.device.type != "cuda":
@@ -66,15 +88,15 @@ def decode_attention(q, all_k, all_v, layer: int, lens, pad, k_scale=None, v_sca
 
 
 def decode_attention_plain(q, all_k, all_v, layer: int, lens, pad, k_scale=None, v_scale=None):
-    """The same function step by step in torch: f32 scores and softmax over
-    the masked slots, f32 probability-weighted sum, cast to q's dtype."""
+    """The same function step by step in torch: dequantize, f32 scores and
+    softmax over the masked slots, f32 probability-weighted sum, cast to q's
+    dtype."""
     B, K, G, D = q.shape
-    T = all_k.shape[2]
-    ck = all_k[layer].float()
-    cv = all_v[layer].float()
     if k_scale is not None:
-        ck = ck * k_scale[layer][..., None]
-        cv = cv * v_scale[layer][..., None]
+        ck, cv = _dequant_layer(all_k, k_scale, layer), _dequant_layer(all_v, v_scale, layer)
+    else:
+        ck, cv = all_k[layer].float(), all_v[layer].float()
+    T = ck.shape[1]
     ck = ck.reshape(B, T, K, D)
     cv = cv.reshape(B, T, K, D)
     t = torch.arange(T, device=q.device)
@@ -90,6 +112,8 @@ def _decode_attention_cuda(q, all_k, all_v, layer, lens, pad, k_scale, v_scale):
     B, K, G, D = q.shape
     L, Bc, T, KD = all_k.shape
     quant = all_k.dtype == torch.int8
+    int4 = quant and is_int4(all_k, k_scale)
+    T = 2 * T if int4 else T
     _build.check_inputs(name, q, all_k, all_v, lens, pad, k_scale, v_scale)
     _check_int32(name, lens, pad)
     if all_v.shape != all_k.shape or Bc != B or KD != K * D or not 0 <= layer < L:
@@ -100,7 +124,7 @@ def _decode_attention_cuda(q, all_k, all_v, layer, lens, pad, k_scale, v_scale):
         raise TypeError(f"{name}: q {q.dtype}, cache {all_k.dtype}/{all_v.dtype}")
     if quant:
         if k_scale is None or v_scale is None:
-            raise ValueError(f"{name}: an int8 cache needs k_scale and v_scale")
+            raise ValueError(f"{name}: an int8 or int4 cache needs k_scale and v_scale")
         for s in (k_scale, v_scale):
             if s.dtype != torch.float32 or s.shape != (L, B, T):
                 raise ValueError(f"{name}: scales must be f32 [{L}, {B}, {T}]")
@@ -114,10 +138,12 @@ def _decode_attention_cuda(q, all_k, all_v, layer, lens, pad, k_scale, v_scale):
             q.data_ptr(), all_k.data_ptr(), all_v.data_ptr(),
             _build.ptr(k_scale), _build.ptr(v_scale), lens.data_ptr(), pad.data_ptr(),
             out.data_ptr(), B, K, G, D, T, int(layer),
-            _build.DTYPE_CODE[q.dtype], _build.DTYPE_CODE[all_k.dtype], _build.stream_of(q.device),
+            _build.DTYPE_CODE[q.dtype], _build.DT_I4 if int4 else _build.DTYPE_CODE[all_k.dtype],
+            _build.stream_of(q.device),
         )
     _build.check(rc, name)
-    _build.launches["decode_attention_int8" if quant else "decode_attention_bf16"] += 1
+    mode = "int4" if int4 else "int8" if quant else "bf16"
+    _build.launches[f"decode_attention_{mode}"] += 1
     return out
 
 
@@ -186,11 +212,13 @@ def _prefill_attention_cuda(q, k, v, pads):
 
 def decode_attention_staged(q, all_k, all_v, k_scale, v_scale, stag_k, stag_v, stag_ks, stag_vs,
                             layer: int, step: int, base, pad):
-    """Flash-decode over the settled int8 cache [pad, base) of layer `layer`
-    plus the staging columns [0, step] of the current segment.
+    """Flash-decode over the settled cache [pad, base) of layer `layer` plus
+    the staging columns [0, step] of the current segment.
 
     q [B, K, G, D] (f32/bf16); all_k/all_v int8 [L, B, T, K*D] with f32
-    k_scale/v_scale [L, B, T]; stag_k/stag_v int8 [L, B, S, K*D] with f32
+    k_scale/v_scale [L, B, T], or int4 nibble pairs [L, B, T/2, K*D] with
+    deinterleaved k_scale/v_scale [L, B, T]; stag_k/stag_v int8
+    [L, B, S, K*D] (unpacked int4 values for an int4 cache) with f32
     stag_ks/stag_vs [L, B, SEG_PAD] (columns [0, S) live); base/pad [B]
     int32. Returns [B, K, G, D] in q's dtype."""
     args = (q, all_k, all_v, k_scale, v_scale, stag_k, stag_v, stag_ks, stag_vs, layer, step,
@@ -207,9 +235,9 @@ def decode_attention_staged_plain(q, all_k, all_v, k_scale, v_scale, stag_k, sta
     """The XLA oracle's steps: dequantize, concatenate the staging after the
     cache, mask to [pad, base) u [T, T + step], f32 softmax and PV."""
     B, K, G, D = q.shape
-    T, S = all_k.shape[2], stag_k.shape[2]
-    ck = all_k[layer].float() * k_scale[layer][..., None]
-    cv = all_v[layer].float() * v_scale[layer][..., None]
+    S = stag_k.shape[2]
+    ck, cv = _dequant_layer(all_k, k_scale, layer), _dequant_layer(all_v, v_scale, layer)
+    T = ck.shape[1]
     sk = stag_k[layer].float() * stag_ks[layer][:, :S, None]
     sv = stag_v[layer].float() * stag_vs[layer][:, :S, None]
     ck2 = torch.cat([ck, sk], dim=1).reshape(B, T + S, K, D)
@@ -225,9 +253,10 @@ def decode_attention_staged_plain(q, all_k, all_v, k_scale, v_scale, stag_k, sta
 
 
 def _check_staging(name, all_k, all_v, k_scale, v_scale, stag_k, stag_v, stag_ks, stag_vs):
-    """Shapes and types of an int8 cache and a segment's staging buffers;
-    returns (L, B, T, KD, S)."""
+    """Shapes and types of an int8 or int4 cache and a segment's staging
+    buffers; returns (L, B, T, KD, S) with T in tokens."""
     L, B, T, KD = all_k.shape
+    T = 2 * T if is_int4(all_k, k_scale) else T
     S = stag_k.shape[2]
     if all_v.shape != all_k.shape or stag_k.shape != (L, B, S, KD) or stag_v.shape != stag_k.shape:
         raise ValueError(f"{name}: cache {tuple(all_k.shape)}, staging {tuple(stag_k.shape)}")
@@ -247,6 +276,7 @@ def _check_staging(name, all_k, all_v, k_scale, v_scale, stag_k, stag_v, stag_ks
 def _decode_attention_staged_cuda(q, all_k, all_v, k_scale, v_scale, stag_k, stag_v, stag_ks,
                                   stag_vs, layer, step, base, pad):
     name = "decode_attention_staged"
+    int4 = is_int4(all_k, k_scale)
     B, K, G, D = q.shape
     _build.check_inputs(name, q, all_k, all_v, k_scale, v_scale, stag_k, stag_v, stag_ks,
                         stag_vs, base, pad)
@@ -262,17 +292,17 @@ def _decode_attention_staged_cuda(q, all_k, all_v, k_scale, v_scale, stag_k, sta
         raise TypeError(f"{name}: q must be f32 or bf16, got {q.dtype}")
     _check_decode_geometry(name, G, D)
     out = torch.empty_like(q)
-    fn = _build.bind("staged_attention.cu", "neutts_decode_attention_staged", 12, 10)
+    fn = _build.bind("staged_attention.cu", "neutts_decode_attention_staged", 12, 11)
     with torch.cuda.device(q.device):
         rc = fn(
             q.data_ptr(), all_k.data_ptr(), all_v.data_ptr(), k_scale.data_ptr(),
             v_scale.data_ptr(), stag_k.data_ptr(), stag_v.data_ptr(), stag_ks.data_ptr(),
             stag_vs.data_ptr(), base.data_ptr(), pad.data_ptr(), out.data_ptr(),
             B, K, G, D, T, S, SEG_PAD, int(layer), int(step), _build.DTYPE_CODE[q.dtype],
-            _build.stream_of(q.device),
+            int(int4), _build.stream_of(q.device),
         )
     _build.check(rc, name)
-    _build.launches[name] += 1
+    _build.launches[name + ("_int4" if int4 else "")] += 1
     return out
 
 
@@ -287,6 +317,20 @@ def _check_copy_buffers(name: str, KD: int, *tensors) -> None:
     for t in tensors:
         if t.data_ptr() % 16:
             raise ValueError(f"{name}: buffers must be 16-byte aligned")
+
+
+def _check_reconcile(name, all_k, all_v, k_scale, v_scale, stag_k, stag_v, stag_ks, stag_vs,
+                     base, active):
+    """The CUDA reconcile wrappers' checks; returns (L, B, T, KD, S)."""
+    _build.check_inputs(name, all_k, all_v, k_scale, v_scale, stag_k, stag_v, stag_ks, stag_vs,
+                        base, active)
+    _check_int32(name, base)
+    L, B, T, KD, S = _check_staging(name, all_k, all_v, k_scale, v_scale, stag_k, stag_v,
+                                    stag_ks, stag_vs)
+    if base.shape != (B,) or active.shape != (B,) or active.dtype != torch.bool:
+        raise ValueError(f"{name}: base must be int32 [{B}] and active bool [{B}]")
+    _check_copy_buffers(name, KD, all_k, all_v, stag_k, stag_v)
+    return L, B, T, KD, S
 
 
 def reconcile_segment(all_k, all_v, k_scale, v_scale, stag_k, stag_v, stag_ks, stag_vs,
@@ -321,14 +365,10 @@ def reconcile_segment_plain(all_k, all_v, k_scale, v_scale, stag_k, stag_v, stag
 def _reconcile_segment_cuda(all_k, all_v, k_scale, v_scale, stag_k, stag_v, stag_ks, stag_vs,
                             base, active):
     name = "reconcile_segment"
-    _build.check_inputs(name, all_k, all_v, k_scale, v_scale, stag_k, stag_v, stag_ks, stag_vs,
-                        base, active)
-    _check_int32(name, base)
-    L, B, T, KD, S = _check_staging(name, all_k, all_v, k_scale, v_scale, stag_k, stag_v,
-                                    stag_ks, stag_vs)
-    if base.shape != (B,) or active.shape != (B,) or active.dtype != torch.bool:
-        raise ValueError(f"{name}: base must be int32 [{B}] and active bool [{B}]")
-    _check_copy_buffers(name, KD, all_k, all_v, stag_k, stag_v)
+    if is_int4(all_k, k_scale):
+        raise TypeError(f"{name}: an int4 cache takes reconcile_segment4")
+    L, B, T, KD, S = _check_reconcile(name, all_k, all_v, k_scale, v_scale, stag_k, stag_v,
+                                      stag_ks, stag_vs, base, active)
     fn = _build.bind("slot_copy.cu", "neutts_reconcile_segment", 10, 6)
     with torch.cuda.device(all_k.device):
         rc = fn(
@@ -368,15 +408,19 @@ def scatter_prefill_plain(all_k, all_v, k_scale, v_scale, new_k, new_v, new_ks, 
     return all_k, all_v, k_scale, v_scale
 
 
-def _scatter_prefill_cuda(all_k, all_v, k_scale, v_scale, new_k, new_v, new_ks, new_vs, slots,
-                          primary):
-    name = "scatter_prefill"
+def _check_scatter(name, pack, all_k, all_v, k_scale, v_scale, new_k, new_v, new_ks, new_vs,
+                   slots, primary):
+    """The CUDA admission-write wrappers' checks, for value rows that hold
+    `pack` tokens each (1: int8, 2: int4 pairs); returns (L, B, T, KD, G,
+    Lp) with T and Lp in tokens."""
     _build.check_inputs(name, all_k, all_v, k_scale, v_scale, new_k, new_v, new_ks, new_vs,
                         slots, primary)
     _check_int32(name, slots)
     L, B, T, KD = all_k.shape
-    G, Lp = new_k.shape[1], new_k.shape[2]
-    if all_v.shape != all_k.shape or new_k.shape != (L, G, Lp, KD) or new_v.shape != new_k.shape:
+    G, Lp = new_ks.shape[1], new_ks.shape[2]
+    T *= pack
+    if (all_v.shape != all_k.shape or new_k.shape != (L, G, Lp // pack, KD)
+            or new_v.shape != new_k.shape):
         raise ValueError(f"{name}: cache {tuple(all_k.shape)}, prompt K/V {tuple(new_k.shape)}")
     for t in (all_k, all_v, new_k, new_v):
         if t.dtype != torch.int8:
@@ -388,7 +432,134 @@ def _scatter_prefill_cuda(all_k, all_v, k_scale, v_scale, new_k, new_v, new_ks, 
     if slots.shape != (G,) or primary.shape != (G,) or primary.dtype != torch.bool:
         raise ValueError(f"{name}: slots must be int32 [{G}] and primary bool [{G}]")
     _check_copy_buffers(name, KD, all_k, all_v, new_k, new_v)
+    return L, B, T, KD, G, Lp
+
+
+def _scatter_prefill_cuda(all_k, all_v, k_scale, v_scale, new_k, new_v, new_ks, new_vs, slots,
+                          primary):
+    name = "scatter_prefill"
+    L, B, T, KD, G, Lp = _check_scatter(name, 1, all_k, all_v, k_scale, v_scale, new_k, new_v,
+                                        new_ks, new_vs, slots, primary)
     fn = _build.bind("slot_copy.cu", "neutts_scatter_prefill", 10, 6)
+    with torch.cuda.device(all_k.device):
+        rc = fn(
+            new_k.data_ptr(), new_v.data_ptr(), new_ks.data_ptr(), new_vs.data_ptr(),
+            slots.data_ptr(), primary.data_ptr(), all_k.data_ptr(), all_v.data_ptr(),
+            k_scale.data_ptr(), v_scale.data_ptr(), L, G, B, T, Lp, KD,
+            _build.stream_of(all_k.device),
+        )
+    _build.check(rc, name)
+    _build.launches[name] += 1
+    return all_k, all_v, k_scale, v_scale
+
+
+# --- int4 slot copies ---------------------------------------------------------------
+
+
+def reconcile_segment4(all_k, all_v, k_scale, v_scale, stag_k, stag_v, stag_ks, stag_vs,
+                       base, active):
+    """int4 segment reconcile, IN PLACE: for every row b with active[b], pack
+    the staging pairs (2j, 2j + 1) (unpacked int4 values, int8
+    [L, B, S, K*D]) into bytes lo + 16*hi at byte rows [base[b]/2,
+    base[b]/2 + S/2) of the packed cache [L, B, T/2, K*D], and write the S
+    staged scales ([L, B, SEG_PAD], columns [0, S) live) to their
+    deinterleaved columns t/2 + (t&1)*T/2 of [L, B, T]. Columns outside the
+    buffers are dropped; other rows stay untouched. Needs an even S and an
+    even base in every active row: the plain version raises on an odd one,
+    the kernel stops with a device-side trap (reported at the next
+    synchronisation), as no wait for the device may happen in a segment.
+    Returns (all_k, all_v, k_scale, v_scale)."""
+    args = (all_k, all_v, k_scale, v_scale, stag_k, stag_v, stag_ks, stag_vs, base, active)
+    if stag_k.shape[2] % 2:
+        raise ValueError(f"reconcile_segment4: S={stag_k.shape[2]} must be even")
+    if all_k.device.type == "cpu":
+        return reconcile_segment4_plain(*args)
+    if all_k.device.type != "cuda":
+        raise ValueError(f"reconcile_segment4: unsupported device {all_k.device}")
+    return _reconcile_segment4_cuda(*args)
+
+
+def reconcile_segment4_plain(all_k, all_v, k_scale, v_scale, stag_k, stag_v, stag_ks,
+                             stag_vs, base, active):
+    from neutts_tpu_torch.models.backbone import deint4_index, pack4_pairs
+
+    B, Tb = all_k.shape[1], all_k.shape[2]
+    T, S = k_scale.shape[2], stag_k.shape[2]
+    if S % 2 or bool((base[active] & 1).any()):
+        raise ValueError("reconcile_segment4: S and the bases of active rows must be even")
+    ar = torch.arange(B, device=base.device)[:, None]
+    cols = (base >> 1)[:, None] + torch.arange(S // 2, device=base.device)  # byte rows [B, S/2]
+    hit = active[:, None] & (cols >= 0) & (cols < Tb)
+    rows, c = ar.expand(B, S // 2)[hit], cols[hit]
+    all_k[:, rows, c] = pack4_pairs(stag_k)[:, hit]
+    all_v[:, rows, c] = pack4_pairs(stag_v)[:, hit]
+    sc = deint4_index(base[:, None] + torch.arange(S, device=base.device), T // 2)  # [B, S]
+    hit = active[:, None] & (sc >= 0) & (sc < T)
+    rows, c = ar.expand(B, S)[hit], sc[hit]
+    k_scale[:, rows, c] = stag_ks[:, :, :S][:, hit]
+    v_scale[:, rows, c] = stag_vs[:, :, :S][:, hit]
+    return all_k, all_v, k_scale, v_scale
+
+
+def _reconcile_segment4_cuda(all_k, all_v, k_scale, v_scale, stag_k, stag_v, stag_ks,
+                             stag_vs, base, active):
+    name = "reconcile_segment4"
+    if not is_int4(all_k, k_scale):
+        raise TypeError(f"{name}: needs an int4 cache (scale rows twice the byte axis)")
+    L, B, T, KD, S = _check_reconcile(name, all_k, all_v, k_scale, v_scale, stag_k, stag_v,
+                                      stag_ks, stag_vs, base, active)
+    fn = _build.bind("slot_copy.cu", "neutts_reconcile_segment4", 10, 6)
+    with torch.cuda.device(all_k.device):
+        rc = fn(
+            stag_k.data_ptr(), stag_v.data_ptr(), stag_ks.data_ptr(), stag_vs.data_ptr(),
+            base.data_ptr(), active.data_ptr(), all_k.data_ptr(), all_v.data_ptr(),
+            k_scale.data_ptr(), v_scale.data_ptr(), L, B, T, S, KD, SEG_PAD,
+            _build.stream_of(all_k.device),
+        )
+    _build.check(rc, name)
+    _build.launches[name] += 1
+    return all_k, all_v, k_scale, v_scale
+
+
+def scatter_prefill4(all_k, all_v, k_scale, v_scale, new_k, new_v, new_ks, new_vs, slots,
+                     primary):
+    """int4 admission-group cache write, IN PLACE: for each admission row j
+    with primary[j], packed prompt bytes new_k/new_v [L, G, Lp/2, K*D] land
+    in byte rows [0, Lp/2) of cache row slots[j] ([L, B, T/2, K*D]), and its
+    TOKEN-ORDER scales new_ks/new_vs [L, G, Lp] land deinterleaved: even
+    tokens at [0, Lp/2), odd ones at [T/2, T/2 + Lp/2) of [L, B, T]. Rows
+    not named stay untouched. Needs an even Lp <= T. Returns (all_k, all_v,
+    k_scale, v_scale)."""
+    args = (all_k, all_v, k_scale, v_scale, new_k, new_v, new_ks, new_vs, slots, primary)
+    Lp, T = new_ks.shape[2], k_scale.shape[2]
+    if Lp % 2 or Lp > T or new_k.shape[2] != Lp // 2:
+        raise ValueError(f"scatter_prefill4: Lp={Lp} must be even and at most T={T}, with "
+                         f"Lp/2 packed rows (got {new_k.shape[2]})")
+    if all_k.device.type == "cpu":
+        return scatter_prefill4_plain(*args)
+    if all_k.device.type != "cuda":
+        raise ValueError(f"scatter_prefill4: unsupported device {all_k.device}")
+    return _scatter_prefill4_cuda(*args)
+
+
+def scatter_prefill4_plain(all_k, all_v, k_scale, v_scale, new_k, new_v, new_ks, new_vs, slots,
+                           primary):
+    n, half = new_k.shape[2], k_scale.shape[2] // 2
+    rows = slots[primary].long()
+    all_k[:, rows, :n] = new_k[:, primary]
+    all_v[:, rows, :n] = new_v[:, primary]
+    for scales, new in ((k_scale, new_ks), (v_scale, new_vs)):
+        scales[:, rows, :n] = new[:, primary, 0::2]
+        scales[:, rows, half : half + n] = new[:, primary, 1::2]
+    return all_k, all_v, k_scale, v_scale
+
+
+def _scatter_prefill4_cuda(all_k, all_v, k_scale, v_scale, new_k, new_v, new_ks, new_vs, slots,
+                           primary):
+    name = "scatter_prefill4"
+    L, B, T, KD, G, Lp = _check_scatter(name, 2, all_k, all_v, k_scale, v_scale, new_k, new_v,
+                                        new_ks, new_vs, slots, primary)
+    fn = _build.bind("slot_copy.cu", "neutts_scatter_prefill4", 10, 6)
     with torch.cuda.device(all_k.device):
         rc = fn(
             new_k.data_ptr(), new_v.data_ptr(), new_ks.data_ptr(), new_vs.data_ptr(),

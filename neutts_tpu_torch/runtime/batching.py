@@ -6,26 +6,30 @@ length, left pad and phase (empty / active / done):
 
   * `prefill_slots` admits a group of LEFT-padded prompts (one bucket Lp)
     into slots, so each admitted row's settled length is Lp;
-  * `decode_steps` advances every active slot n_steps tokens. With the int8
-    cache it runs SEGMENT-STAGED on every device: each step's quantized K/V
-    goes to a staging buffer at the segment column i (shared by all rows),
+  * `decode_steps` advances every active slot n_steps tokens. With an int8
+    or int4 cache it runs SEGMENT-STAGED on every device: each step's
+    quantized K/V goes to a staging buffer at the segment column i (shared
+    by all rows; unpacked int4 values for an int4 cache),
     `decode_attention_staged` attends settled cache [pad, base) + staging
-    [0, i], and one `reconcile_segment` folds the staging into each row's
-    cache slots [base, base + S) at segment end. Float caches take the
-    direct per-row write path (`_decode_steps_scatter`), which stays
-    callable for int8 as the staged path's oracle. The JAX package picks
-    the staged path only on a TPU; here the CPU runs the same code with the
-    kernels' plain versions;
+    [0, i], and one `reconcile_segment` (int4: `reconcile_segment4`, which
+    packs the pairs) folds the staging into each row's cache slots
+    [base, base + S) at segment end. Float caches take the direct per-row
+    write path (`_decode_steps_scatter`), which stays callable for int8 and
+    int4 as the staged path's oracle. The JAX package picks the staged path
+    only on a TPU; here the CPU runs the same code with the kernels' plain
+    versions;
   * `retire_slots` deactivates slots between segments.
+
+int4 alignment: admission buckets are multiples of 64 and int4 segments of
+SEGMENT_ALIGN_INT4 steps, so every segment base is even and every byte the
+reconcile writes holds a complete token pair; an odd admission bucket
+raises.
 
 State lives on the device between calls. The KV cache is updated in place;
 the small per-slot tensors (token, lens, pad, prompt_lens, active) are
 replaced by new tensors, never written in place, so a tensor read from the
 state stays valid after the next call. Nothing here reads a value back to
 the host: a whole segment is queued without a synchronisation.
-
-The int4 cache (`kv_dtype` "int4" / "auto") is not ported yet (ROADMAP
-Queue 1 item 3).
 """
 
 from __future__ import annotations
@@ -42,6 +46,7 @@ from neutts_tpu_torch.ops import sampling as smp
 from neutts_tpu_torch.runtime.decode import PROMPT_BUCKETS
 
 SEGMENT_ALIGN = 8  # segment step counts must be multiples of this
+SEGMENT_ALIGN_INT4 = 16  # ... and of this with an int4 cache (even bases)
 BLOCK_T = 256  # physical slot lengths are multiples of this (the JAX package's)
 
 # Extra physical cache slots per row beyond max_context: the worst left pad
@@ -54,13 +59,19 @@ CACHE_SLACK = round_up(_MAX_BUCKET_GAP - 1 + attn_ops.SEG_PAD, 128)  # 256
 
 def slot_cache_len(cfg: BackboneConfig) -> int:
     """Physical per-slot cache length of the serving path: the logical
-    context plus the reconcile slack, a multiple of BLOCK_T (2304 at Air)."""
-    return round_up(cfg.max_context + CACHE_SLACK, BLOCK_T)
+    context plus the reconcile slack, a multiple of BLOCK_T (2304 at Air),
+    or of 512 for int4 (2560 at Air), as in the JAX package."""
+    return round_up(cfg.max_context + CACHE_SLACK, 512 if cfg.kv_dtype == "int4" else BLOCK_T)
+
+
+def segment_align(cache: bb.KVCache) -> int:
+    """Step counts a staged segment over `cache` must be multiples of."""
+    return SEGMENT_ALIGN_INT4 if cache.int4 else SEGMENT_ALIGN
 
 
 @dataclass
 class SlotState:
-    cache: bb.KVCache  # [L, B, T, K*D] x2 (+ [L, B, T] scales in int8 mode)
+    cache: bb.KVCache  # [L, B, T, K*D] x2 (+ scales; int4: packed, see bb.KVCache)
     token: torch.Tensor  # [B] int32 next input token per slot
     lens: torch.Tensor  # [B] int32 cache slots used (left pad + real tokens)
     pad: torch.Tensor  # [B] int32 left pad per slot (attend t >= pad)
@@ -91,29 +102,56 @@ def prefill_slots(cfg: BackboneConfig, sampling: SamplingConfig, eos_id: int, pa
     lengths true_lens [G]) into cache rows `slots` [G] with one batched
     prefill. Duplicate slots must carry identical rows (the engine pads a
     partial group by repeating its last admission); only the first
-    occurrence is written. Returns `state`, updated."""
+    occurrence is written. An int4 cache needs an even Lp. Returns `state`,
+    updated."""
     G, Lp = tokens.shape
     dev = tokens.device
     cache = state.cache
+    if cache.int4 and Lp % 2:
+        raise ValueError(f"an int4 cache takes even admission buckets, got Lp={Lp}")
     # first occurrence of each slot: duplicates take the primary row's values
     ar = torch.arange(G, device=dev)
     src = torch.where(slots[:, None] == slots[None, :], ar[None, :], G).amin(dim=1)
     primary = src == ar
     rows = slots.long()
-    if cache.quantized:
+    L, KD = cfg.n_layers, cfg.kv_dim
+    if cache.int4:
+        # stack packed K/V [L, G, Lp/2, KD], token-order scales [L, G, Lp] and
+        # last-token values [L, G, KD], then ONE scatter_prefill4
+        packed = [torch.empty((L, G, Lp // 2, KD), dtype=torch.int8, device=dev) for _ in range(2)]
+        scales = [torch.empty((L, G, Lp), dtype=torch.float32, device=dev) for _ in range(2)]
+        last = [torch.empty((L, G, KD), dtype=torch.int8, device=dev) for _ in range(2)]
+
+        def store(l, k, v):
+            for i, x in enumerate((k, v)):
+                q, scales[i][l] = bb.quantize_kv4(x)
+                packed[i][l] = bb.pack4_pairs(q)
+                last[i][l] = q[:, -1]
+
+        h = bb.prefill_hidden(cfg, params, tokens, true_lens, store)
+        attn_ops.scatter_prefill4(cache.k, cache.v, cache.k_scale, cache.v_scale, *packed,
+                                  *scales, slots, primary)
+        # the prev registers of the direct-write path: a tiny [L, G, KD]
+        # write outside the kernel, as in the JAX package; duplicate slots
+        # carry identical rows
+        cache.k_prev[:, rows] = last[0]
+        cache.v_prev[:, rows] = last[1]
+        del packed, scales, last
+    elif cache.quantized:
         # stack the layers' quantized K/V [L, G, Lp, KD], then ONE scatter_prefill
-        L, KD = cfg.n_layers, cfg.kv_dim
         new = bb.KVCache(
             k=torch.empty((L, G, Lp, KD), dtype=torch.int8, device=dev),
             v=torch.empty((L, G, Lp, KD), dtype=torch.int8, device=dev),
             k_scale=torch.empty((L, G, Lp), dtype=torch.float32, device=dev),
             v_scale=torch.empty((L, G, Lp), dtype=torch.float32, device=dev))
-        h = bb.prefill_hidden(cfg, params, tokens, true_lens, new, ())
+        h = bb.prefill_hidden(cfg, params, tokens, true_lens,
+                              lambda l, k, v: bb.write_kv(new, l, (), k, v))
         attn_ops.scatter_prefill(cache.k, cache.v, cache.k_scale, cache.v_scale,
                                  new.k, new.v, new.k_scale, new.v_scale, slots, primary)
         del new
     else:
-        h = bb.prefill_hidden(cfg, params, tokens, true_lens, cache, (rows, slice(0, Lp)))
+        h = bb.prefill_hidden(cfg, params, tokens, true_lens,
+                              lambda l, k, v: bb.write_kv(cache, l, (rows, slice(0, Lp)), k, v))
     first = smp.sample_from_hidden(cfg, sampling, params, h, state.generator, eos_id,
                                    0 < sampling.min_new_tokens)[src]  # [G]
     pads = (Lp - true_lens).to(torch.int32)
@@ -158,8 +196,9 @@ def decode_steps(cfg: BackboneConfig, sampling: SamplingConfig, eos_id: int, n_s
     `eos_id`. The first token of a fresh admission comes from
     `prefill_slots` (state.token); the engine records it at admission."""
     if state.cache.quantized:
-        if n_steps % SEGMENT_ALIGN or not 0 < n_steps <= attn_ops.SEG_PAD:
-            raise ValueError(f"staged segments take a multiple of {SEGMENT_ALIGN} steps up to "
+        align = segment_align(state.cache)
+        if n_steps % align or not 0 < n_steps <= attn_ops.SEG_PAD:
+            raise ValueError(f"staged segments take a multiple of {align} steps up to "
                              f"SEG_PAD={attn_ops.SEG_PAD}, got {n_steps}")
         return _decode_steps_staged(cfg, sampling, eos_id, n_steps, params, state)
     return _decode_steps_scatter(cfg, sampling, eos_id, n_steps, params, state)
@@ -178,9 +217,13 @@ def _step_head(cfg, sampling, eos_id, params, state, h, lens_new, active, lens, 
 
 @torch.inference_mode()
 def _decode_steps_staged(cfg, sampling, eos_id, n_steps, params, state):
-    """Segment-staged decode (int8 cache): staging writes at column i, the
-    staged attention kernel, one reconcile at segment end."""
+    """Segment-staged decode (int8 or int4 cache): staging writes at column
+    i, the staged attention kernel, one reconcile at segment end. An int4
+    cache stages unpacked int4 values (`quantize_kv4`) and leaves its prev
+    registers untouched: they belong to the direct-write path, and the
+    even segment bases make every reconciled byte a complete pair."""
     cache = state.cache
+    quantize = bb.quantize_kv4 if cache.int4 else bb.quantize_kv
     B = state.token.shape[0]
     dev = state.token.device
     L, S, KD = cfg.n_layers, n_steps, cfg.kv_dim
@@ -197,7 +240,7 @@ def _decode_steps_staged(cfg, sampling, eos_id, n_steps, params, state):
     for i in range(S):
         def attend(l, q, k, v, i=i):
             # write-then-attend: column i is written before the kernel reads [0, i]
-            bb.write_kv(stag, l, (slice(None), i), k, v)
+            bb.write_kv(stag, l, (slice(None), i), k, v, quantize=quantize)
             return attn_ops.decode_attention_staged(
                 q, cache.k, cache.v, cache.k_scale, cache.v_scale, stag.k, stag.v,
                 stag.k_scale, stag.v_scale, l, i, base, state.pad)
@@ -209,8 +252,9 @@ def _decode_steps_staged(cfg, sampling, eos_id, n_steps, params, state):
         outs[:, i] = token
 
     # every column of every row active at segment start, even past an EOS
-    attn_ops.reconcile_segment(cache.k, cache.v, cache.k_scale, cache.v_scale,
-                               stag.k, stag.v, stag.k_scale, stag.v_scale, base, active0)
+    reconcile = attn_ops.reconcile_segment4 if cache.int4 else attn_ops.reconcile_segment
+    reconcile(cache.k, cache.v, cache.k_scale, cache.v_scale, stag.k, stag.v, stag.k_scale,
+              stag.v_scale, base, active0)
     state.token, state.lens, state.active = token, lens, active
     return state, outs
 
@@ -218,7 +262,7 @@ def _decode_steps_staged(cfg, sampling, eos_id, n_steps, params, state):
 @torch.inference_mode()
 def _decode_steps_scatter(cfg, sampling, eos_id, n_steps, params, state):
     """Direct per-row cache writes at each row's own length (float caches;
-    the staged path's oracle for int8), then `decode_attention`."""
+    the staged path's oracle for int8 and int4), then `decode_attention`."""
     cache = state.cache
     B = state.token.shape[0]
     ar = torch.arange(B, device=state.token.device)
@@ -229,7 +273,10 @@ def _decode_steps_scatter(cfg, sampling, eos_id, n_steps, params, state):
         lens_new = write_at + 1  # attend [pad, lens_new), the fresh token included
 
         def attend(l, q, k, v, cols=write_at.long(), lens_new=lens_new):
-            bb.write_kv(cache, l, (ar, cols), k, v)
+            if cache.int4:
+                bb.write_kv4_rows(cache, l, cols, k, v)
+            else:
+                bb.write_kv(cache, l, (ar, cols), k, v)
             return attn_ops.decode_attention(q, cache.k, cache.v, l, lens_new, state.pad,
                                              cache.k_scale, cache.v_scale)
 

@@ -31,8 +31,9 @@ PROMPT_BUCKETS = tuple(range(128, 2048 + 1, 64))
 
 def _cache_align(cfg: BackboneConfig) -> int:
     """Physical cache lengths are multiples of this — the JAX package's
-    bf16/int8 alignment — so the two packages' caches have one shape."""
-    return 256
+    alignment, 256 for bf16/int8 and 512 for int4 — so the two packages'
+    caches have one shape."""
+    return 512 if cfg.kv_dtype == "int4" else 256
 
 
 class GenerateResult(NamedTuple):
@@ -48,14 +49,14 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def resolve_cfg(cfg: BackboneConfig, total_ctx: int) -> BackboneConfig:
-    """kv_dtype resolution as in the JAX `generate`; the int4 cache (which
-    "auto" always resolves to) is not ported yet and raises."""
-    cfg = resolve_kv_dtype(cfg, total_ctx)
-    if cfg.kv_dtype == "int4":
-        raise NotImplementedError(
-            "kv_dtype 'int4' (and 'auto', which resolves to it) comes in a later slice "
-            "of the PyTorch port; use 'bfloat16' or 'int8'")
+def resolve_cfg(cfg: BackboneConfig, Lp: int, cap: int) -> BackboneConfig:
+    """kv_dtype resolution as in the JAX `generate`: "auto" by the call's
+    total context Lp + cap. int4 packs token pairs and needs an even prompt
+    bucket; an odd one (only reachable at the max_context - 1 window edge)
+    falls back to int8."""
+    cfg = resolve_kv_dtype(cfg, Lp + cap)
+    if cfg.kv_dtype == "int4" and Lp % 2:
+        cfg = cfg.scaled(kv_dtype="int8")
     return cfg
 
 
@@ -68,7 +69,7 @@ def generate(cfg: BackboneConfig, sampling: SamplingConfig, eos_id: int, max_new
     B, Lp = tokens.shape
     dev = tokens.device
     cap = max(min(max_new, cfg.max_context - 1), 1)
-    cfg = resolve_cfg(cfg, Lp + cap)
+    cfg = resolve_cfg(cfg, Lp, cap)
     pad = (Lp - prompt_lens).to(torch.int32)
     cache = bb.KVCache.create(cfg, B, max_len=round_up(Lp + cap, _cache_align(cfg)), device=dev)
 

@@ -30,7 +30,7 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from neutts_tpu_torch.config import BackboneConfig, SamplingConfig, round_up
+from neutts_tpu_torch.config import BackboneConfig, SamplingConfig, resolve_kv_dtype, round_up
 from neutts_tpu_torch.models import backbone as bb
 from neutts_tpu_torch.models.checkpoint import tree_to
 from neutts_tpu_torch.ops.attention import SEG_PAD
@@ -95,6 +95,9 @@ class Engine:
         device="cuda",
     ):
         self.device = resolve_device(device)
+        # kv_dtype="auto": slots live for any request mix, so it resolves
+        # against the whole context window (int4, as in the JAX package)
+        cfg = resolve_kv_dtype(cfg, cfg.max_context)
         self.cfg = cfg
         self.eos_id = eos_id
         self.n_slots = n_slots
@@ -112,10 +115,11 @@ class Engine:
         if cfg.max_context % 128 != 0:
             raise ValueError(
                 f"max_context must be a multiple of 128 for serving (got {cfg.max_context})")
-        # segments: a multiple of SEGMENT_ALIGN that fits the staging scales
-        align = batching.SEGMENT_ALIGN
-        self.segment_steps = min(max(align, (segment_steps // align) * align), SEG_PAD)
+        # segments: a multiple of the staged alignment (SEGMENT_ALIGN, or
+        # SEGMENT_ALIGN_INT4 for int4's token pairs) that fits the staging scales
         self.state = batching.SlotState.create(cfg, n_slots, self.device, seed=seed)
+        align = batching.segment_align(self.state.cache)
+        self.segment_steps = min(max(align, (segment_steps // align) * align), SEG_PAD)
         self._queue: deque[Request] = deque()
         self._slot_req: List[Optional[Request]] = [None] * n_slots
         self._finished: List[Request] = []

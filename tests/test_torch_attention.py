@@ -258,3 +258,156 @@ def test_scatter_prefill_matches_pallas_kernel_exactly():
         for untouched in (1, 3, 5):
             np.testing.assert_array_equal(g.numpy()[:, untouched], before[:, untouched])
     np.testing.assert_array_equal(got[0].numpy()[:, 2, :Lp], new[0][:, 2])
+
+
+# --- int4 modes ------------------------------------------------------------------
+
+
+def _int4_cache(rng, L, B, T, KD):
+    """Packed int4 values [L, B, T/2, KD] and deinterleaved scales [L, B, T]
+    of unit-normal K/V rows, quantized by the JAX helpers."""
+    q, sc = jbb.quantize_kv4(jnp.asarray(rng.standard_normal((L, B, T, KD)).astype(np.float32)))
+    return np.array(jbb.pack4_pairs(q)), np.array(jbb.scales4_block(sc))
+
+
+@pytest.mark.parametrize("lens_pad", [
+    ([301, 512], [0, 3]),    # odd lens and an odd pad: half-byte masks at both ends
+    ([77, 130], [77 - 1, 5]),  # a single live token at an odd slot
+])
+def test_decode_int4_matches_oracle_and_kernel(lens_pad):
+    """int4 cache (nibble pairs + deinterleaved scales), layer 1 of a
+    stacked cache: plain == the XLA oracle on the dequantized cache to 1e-5
+    (same f32 math), == the Pallas int4 kernel (interpret) to 2e-2 (it
+    rounds probabilities to bf16 before PV; the port keeps f32)."""
+    B, K, G, T, D = 2, 2, 7, 512, 64
+    rng = np.random.default_rng(5)
+    q = rng.standard_normal((B, K, G, D)).astype(np.float32)
+    kp, ks = _int4_cache(rng, 2, B, T, K * D)
+    vp, vs = _int4_cache(rng, 2, B, T, K * D)
+    lens, pad = np.asarray(lens_pad[0], np.int32), np.asarray(lens_pad[1], np.int32)
+    got = tattn.decode_attention(_t(q), _t(kp), _t(vp), 1, _t(lens), _t(pad), _t(ks), _t(vs))
+    assert tattn.is_int4(_t(kp), _t(ks))
+    want = jattn.decode_attention_xla(jnp.asarray(q), jbb.dequant_kv4(kp[1], ks[1]),
+                                      jbb.dequant_kv4(vp[1], vs[1]), jnp.asarray(lens),
+                                      jnp.asarray(pad))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
+    kern = jattn.decode_attention_stacked(
+        jnp.asarray(q), jnp.asarray(kp), jnp.asarray(vp), jnp.int32(1), jnp.asarray(lens),
+        jnp.asarray(pad), k_scale=jnp.asarray(ks), v_scale=jnp.asarray(vs), block_t=256,
+        interpret=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(kern), rtol=2e-2, atol=2e-2)
+
+
+def _staged4_inputs():
+    """The inputs of tests/test_attention.py::test_staged_int4_matches_oracle."""
+    rng = np.random.default_rng(0)
+    L, B, Tb, K, G, D, S = 2, 4, 512, 2, 2, 16, 16
+    KD, T = K * D, 2 * Tb
+    return dict(
+        q=rng.normal(size=(B, K, G, D)).astype(np.float32),
+        all_k=rng.integers(-119, 120, (L, B, Tb, KD)).astype(np.int8),
+        all_v=rng.integers(-119, 120, (L, B, Tb, KD)).astype(np.int8),
+        k_scale=rng.uniform(0.01, 0.1, (L, B, T)).astype(np.float32),
+        v_scale=rng.uniform(0.01, 0.1, (L, B, T)).astype(np.float32),
+        stag_k=rng.integers(-7, 8, (L, B, S, KD)).astype(np.int8),
+        stag_v=rng.integers(-7, 8, (L, B, S, KD)).astype(np.int8),
+        stag_ks=rng.uniform(0.01, 0.1, (L, B, tattn.SEG_PAD)).astype(np.float32),
+        stag_vs=rng.uniform(0.01, 0.1, (L, B, tattn.SEG_PAD)).astype(np.float32),
+    )
+
+
+@pytest.mark.parametrize("layer,step", [(0, 0), (1, 7), (1, 15)])
+def test_staged_int4_matches_oracle_and_kernel(layer, step):
+    """int4 staged decode (packed settled cache + unpacked int4 staging),
+    ragged even bases and odd pads: plain == decode_attention_staged_xla to
+    1e-5, == the Pallas kernel (interpret) within tests/test_attention.py's
+    bound for it (atol 0.02, rtol 0.05: bf16 probabilities there)."""
+    x = _staged4_inputs()
+    base = np.asarray([16, 64, 272, 640], np.int32)
+    pad = np.asarray([3, 0, 5, 1], np.int32)
+    names = ("q", "all_k", "all_v", "k_scale", "v_scale", "stag_k", "stag_v", "stag_ks",
+             "stag_vs")
+    got = tattn.decode_attention_staged(*(_t(x[n]) for n in names), layer, step, _t(base),
+                                        _t(pad))
+    jargs = [jnp.asarray(x[n]) for n in names]
+    want = jattn.decode_attention_staged_xla(*jargs, layer, step, jnp.asarray(base),
+                                             jnp.asarray(pad))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
+    kern = jattn.decode_attention_staged(*jargs, jnp.int32(layer), jnp.int32(step),
+                                         jnp.asarray(base), jnp.asarray(pad), interpret=True,
+                                         row_block=4)
+    np.testing.assert_allclose(got.numpy(), np.asarray(kern), rtol=0.05, atol=0.02)
+
+
+def test_reconcile4_matches_pallas_kernel_exactly():
+    """int4 segment reconcile in place: plain == the JAX reconcile_segment4
+    (Pallas copy in interpret mode + one-hot deinterleaved scale fold) on
+    all four buffers, array-equal; the inactive row untouched byte for
+    byte; the packed bytes are the staged pairs; the last row ends at T."""
+    rng = np.random.default_rng(6)
+    L, B, Tb, KD, S = 2, 4, 128, 32, 16
+    T = 2 * Tb
+    bufs = [rng.integers(-119, 120, (L, B, Tb, KD)).astype(np.int8) for _ in range(2)]
+    bufs += [rng.uniform(0.01, 0.1, (L, B, T)).astype(np.float32) for _ in range(2)]
+    stag = [rng.integers(-7, 8, (L, B, S, KD)).astype(np.int8) for _ in range(2)]
+    stag += [rng.uniform(0.01, 0.1, (L, B, tattn.SEG_PAD)).astype(np.float32) for _ in range(2)]
+    base = np.asarray([16, 0, 112, T - S], np.int32)
+    active = np.asarray([True, False, True, True])
+    got = tattn.reconcile_segment4(*(_t(b.copy()) for b in bufs), *(_t(a) for a in stag),
+                                   _t(base), _t(active))
+    want = jattn.reconcile_segment4(*(jnp.asarray(b) for b in bufs),
+                                    *(jnp.asarray(a) for a in stag), jnp.asarray(base),
+                                    jnp.asarray(active), interpret=True, row_block=4)
+    for g, w, before in zip(got, want, bufs):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+        np.testing.assert_array_equal(g.numpy()[:, 1], before[:, 1])  # inactive row
+    np.testing.assert_array_equal(got[0].numpy()[:, 2, 56:64],
+                                  np.asarray(jbb.pack4_pairs(jnp.asarray(stag[0][:, 2]))))
+    np.testing.assert_array_equal(got[2].numpy()[:, 2, Tb + 56:Tb + 64], stag[2][:, 2, 1:S:2])
+
+
+def test_reconcile4_needs_even_base_and_segment():
+    rng = np.random.default_rng(7)
+    bufs = [_t(rng.integers(-7, 8, (1, 2, 32, 16)).astype(np.int8)) for _ in range(2)]
+    bufs += [_t(np.ones((1, 2, 64), np.float32)) for _ in range(2)]
+    scales = [_t(np.ones((1, 2, tattn.SEG_PAD), np.float32)) for _ in range(2)]
+    active = _t(np.asarray([True, False]))
+    for S, base in ((16, [3, 0]), (15, [0, 0])):
+        stag = [_t(np.zeros((1, 2, S, 16), np.int8)) for _ in range(2)]
+        with pytest.raises(ValueError):
+            tattn.reconcile_segment4(*bufs, *stag, *scales, _t(np.asarray(base, np.int32)),
+                                     active)
+    # an odd base in an inactive row is never read
+    stag = [_t(np.zeros((1, 2, 16, 16), np.int8)) for _ in range(2)]
+    tattn.reconcile_segment4(*bufs, *stag, *scales, _t(np.asarray([0, 3], np.int32)), active)
+
+
+def test_scatter_prefill4_matches_pallas_kernel_exactly():
+    """int4 admission write in place, with a duplicated slot and rows not
+    named: plain == the JAX scatter_prefill4 (Pallas copy in interpret mode
+    + one-hot deinterleaved scale projection), array-equal."""
+    rng = np.random.default_rng(8)
+    L, B, Tb, KD, G, Lp = 2, 6, 128, 32, 4, 64
+    T = 2 * Tb
+    bufs = [rng.integers(-119, 120, (L, B, Tb, KD)).astype(np.int8) for _ in range(2)]
+    bufs += [rng.uniform(0.01, 0.1, (L, B, T)).astype(np.float32) for _ in range(2)]
+    new = [rng.integers(-119, 120, (L, G, Lp // 2, KD)).astype(np.int8) for _ in range(2)]
+    new += [rng.uniform(0.01, 0.1, (L, G, Lp)).astype(np.float32) for _ in range(2)]
+    for a in new:
+        a[:, 3] = a[:, 2]  # the duplicate carries the same row
+    slots = np.asarray([4, 0, 2, 2], np.int32)
+    primary = np.asarray([True, True, True, False])
+    got = tattn.scatter_prefill4(*(_t(b.copy()) for b in bufs), *(_t(a) for a in new),
+                                 _t(slots), _t(primary))
+    want = jattn.scatter_prefill4(*(jnp.asarray(b) for b in bufs),
+                                  *(jnp.asarray(a) for a in new), jnp.asarray(slots),
+                                  jnp.asarray(primary), interpret=True)
+    for g, w, before in zip(got, want, bufs):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+        for untouched in (1, 3, 5):
+            np.testing.assert_array_equal(g.numpy()[:, untouched], before[:, untouched])
+    np.testing.assert_array_equal(got[2].numpy()[:, 2, Tb:Tb + Lp // 2], new[2][:, 2, 1::2])
+    with pytest.raises(ValueError):  # an odd bucket cannot hold whole pairs
+        tattn.scatter_prefill4(*(_t(b) for b in bufs), _t(new[0][:, :, :15]),
+                               _t(new[1][:, :, :15]), _t(new[2][:, :, :31]),
+                               _t(new[3][:, :, :31]), _t(slots), _t(primary))

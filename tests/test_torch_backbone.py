@@ -6,7 +6,8 @@ Tolerances: f32 weights with an f32 or int8 cache run the same f32 math in
 another summation order — 2e-4 on the logits (as tests/test_backbone.py
 allows between two JAX paths). int8 weights differ only where an activation
 lands within an ulp of an int8 rounding boundary — within one quantization
-step, bounded at 3e-2 of the logit range. Greedy tokens must match exactly.
+step, bounded at 3e-2 of the logit range. Greedy tokens must match exactly,
+with the int4 cache too.
 """
 
 import jax
@@ -99,7 +100,10 @@ def test_quantize_params_tree_matches(jparams):
     np.testing.assert_allclose(tq["layers"]["wqkv"]["b"].numpy(), jq["layers"]["wqkv"]["b"])
 
 
-@pytest.mark.parametrize("kv_dtype,quant", [("float32", False), ("int8", False), ("int8", True)])
+@pytest.mark.parametrize("kv_dtype,quant", [
+    ("float32", False), ("int8", False), ("int8", True), ("int4", False), ("auto", False),
+    ("auto", True),
+])
 def test_greedy_generate_matches_jax(jparams, kv_dtype, quant):
     """Greedy generate: identical tokens and lengths, ragged prompts."""
     jc = JCFG.scaled(kv_dtype=kv_dtype)
@@ -134,12 +138,142 @@ def test_generate_per_row_context_cap(jparams):
     assert tr.lengths.tolist() == [11, 19]  # incl. the closing EOS
 
 
-def test_int4_and_auto_not_ported_yet(jparams):
-    tt, tl = tdec.pad_prompts([[1, 2, 3]], pad_id=0, bucket=16, device="cpu")
-    for kv in ("int4", "auto"):
-        with pytest.raises(NotImplementedError):
-            tdec.generate(CFG.scaled(kv_dtype=kv), config.SamplingConfig(greedy=True), EOS, 4,
-                          _to_torch(jparams), tt, tl)
+# --- int4 KV cache -------------------------------------------------------------------
+
+
+def test_int4_helpers_match_jax():
+    """quantize_kv4 (amax/7, round-half-even, clip 7), pack4_pairs, unpack4,
+    scales4_block, deint4_index and dequant_kv4 equal the JAX helpers
+    element for element, on values that include exact .5 ties."""
+    rng = np.random.default_rng(4)
+    x = rng.normal(size=(3, 10, 32)).astype(np.float32)
+    x[0, 0, :3] = [3.5, -3.5, 7.0]  # amax 7: scale 1, so 3.5 is a tie (-> 4)
+    jq, js = jbb.quantize_kv4(jnp.asarray(x))
+    tq, ts = tbb.quantize_kv4(torch.from_numpy(x))
+    np.testing.assert_array_equal(tq.numpy(), np.asarray(jq))
+    np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
+    assert tq[0, 0, :2].tolist() == [4, -4]
+    jp, tp = jbb.pack4_pairs(jq), tbb.pack4_pairs(tq)
+    np.testing.assert_array_equal(tp.numpy(), np.asarray(jp))
+    for a, b in zip(tbb.unpack4(tp), jbb.unpack4(jp)):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+    lo, hi = tbb.unpack4(tp)
+    np.testing.assert_array_equal(lo.numpy(), tq.numpy()[:, 0::2])
+    np.testing.assert_array_equal(hi.numpy(), tq.numpy()[:, 1::2])
+    np.testing.assert_array_equal(tbb.scales4_block(ts).numpy(), np.asarray(jbb.scales4_block(js)))
+    t = np.arange(20, dtype=np.int32)
+    np.testing.assert_array_equal(tbb.deint4_index(torch.from_numpy(t), 10).numpy(),
+                                  np.asarray(jbb.deint4_index(jnp.asarray(t), 10)))
+    np.testing.assert_array_equal(
+        tbb.dequant_kv4(tp, tbb.scales4_block(ts)).numpy(),
+        np.asarray(jbb.dequant_kv4(jp, jbb.scales4_block(js))))
+    # every pair of [-7, 7]^2 packs to one byte of [-119, 119] and back
+    lo, hi = torch.meshgrid(torch.arange(-7, 8, dtype=torch.int8),
+                            torch.arange(-7, 8, dtype=torch.int8), indexing="ij")
+    b = tbb.pack4(lo, hi)
+    assert int(b.abs().max()) == 119 and b.unique().numel() == 225
+    assert all(torch.equal(a, c) for a, c in zip(tbb.unpack4(b), (lo, hi)))
+
+
+def _nibbles(buf, pad):
+    """Packed [L, B, T/2, KD] -> int4 values [L, B, T, KD] with the slots
+    before each row's pad zeroed (they hold pad-token K/V, masked everywhere)."""
+    lo, hi = jbb.unpack4(jnp.asarray(buf))
+    L, B, T2, KD = lo.shape
+    out = np.asarray(jnp.stack([lo, hi], axis=3).reshape(L, B, 2 * T2, KD)).copy()
+    for b, p in enumerate(pad):
+        out[:, b, :p] = 0
+    return out
+
+
+@pytest.mark.parametrize("quant", [False, True])
+def test_int4_prefill_cache_matches_jax(jparams, quant):
+    """After prefill of two ragged prompts (odd pads), the int4 caches of
+    both packages hold the same nibbles on every real slot and the same
+    prev registers (the last prompt token), and scales within 1e-5: the
+    f32 projections sum in another order, so an amax may differ by an ulp
+    (and a nibble by one step where x/scale lands within that ulp of a .5
+    tie; none does here). Pad slots hold pad-token K/V in both packages,
+    whose values past layer 0 depend on how each masks a fully padded row."""
+    jc, tc = JCFG.scaled(kv_dtype="int4"), CFG.scaled(kv_dtype="int4")
+    jp = jbb.quantize_params(jparams) if quant else jparams
+    prompts = [[5, 6, 7, 8, 9, 10, 11], [12, 13, 14, 15]]
+    jt, jl = jdec.pad_prompts(prompts, pad_id=0, bucket=16)
+    tt, tl = tdec.pad_prompts(prompts, pad_id=0, bucket=16, device="cpu")
+    _, jcache = jbb.prefill(jc, jp, jt, jl, jbb.KVCache.create(jc, 2, max_len=32))
+    _, tcache = tbb.prefill(tc, _to_torch(jp), tt, tl,
+                            tbb.KVCache.create(tc, 2, max_len=32, device="cpu"))
+    pad = [16 - len(p) for p in prompts]  # 9 and 12: the first real token is odd in row 0
+    assert tcache.k.shape == jcache.k.shape == (2, 2, 16, 32) and tcache.max_len == 32
+    for name in ("k", "v"):
+        np.testing.assert_array_equal(_nibbles(getattr(tcache, name).numpy(), pad),
+                                      _nibbles(getattr(jcache, name), pad), err_msg=name)
+    for name in ("k_prev", "v_prev"):
+        np.testing.assert_array_equal(getattr(tcache, name).numpy(),
+                                      np.asarray(getattr(jcache, name)), err_msg=name)
+    for name in ("k_scale", "v_scale"):
+        ts, js = getattr(tcache, name).numpy(), np.asarray(getattr(jcache, name))
+        for b, p in enumerate(pad):
+            cols = [t // 2 + (t % 2) * 16 for t in range(p, 16)]
+            np.testing.assert_allclose(ts[:, b, cols], js[:, b, cols], rtol=1e-5, err_msg=name)
+
+
+def test_auto_odd_bucket_falls_back_to_int8(jparams):
+    """Mirror of tests/test_pipeline.py::test_near_window_odd_prompt_int4_auto:
+    near the window edge the bucket rounds up to even while that fits; at
+    max_context - 1 the odd bucket stays, and "auto" resolves to int8 for
+    that call (int4 packs token pairs) instead of failing, with the JAX
+    package's tokens."""
+    from neutts_tpu_torch.pipeline import NeuTTS
+
+    cfg = CFG.scaled(kv_dtype="auto")
+    tts = NeuTTS.initialize_random(cfg, device="cpu")
+    assert tts._pick_bucket(509) == 510  # TINY max_context 512
+    assert tts._pick_bucket(508) == 508
+    assert tts._pick_bucket(511) == 511
+    assert tts._pick_bucket(100) == tdec.bucket_length(100)
+    assert tdec.resolve_cfg(cfg, 511, 1).kv_dtype == "int8"
+    assert tdec.resolve_cfg(cfg, 510, 1).kv_dtype == "int4"
+    scfg = dict(greedy=True, min_new_tokens=1)
+    jt, jl = jdec.pad_prompts([[5] * 511], pad_id=0, bucket=511)
+    tt, tl = tdec.pad_prompts([[5] * 511], pad_id=0, bucket=511, device="cpu")
+    jr = jdec.generate(JCFG.scaled(kv_dtype="auto"), jcfg.SamplingConfig(**scfg), EOS, 4, jparams,
+                       jt, jl, jax.random.PRNGKey(1))
+    tr = tdec.generate(cfg, config.SamplingConfig(**scfg), EOS, 4, _to_torch(jparams), tt, tl)
+    np.testing.assert_array_equal(tr.tokens.numpy(), np.asarray(jr.tokens))
+
+
+@pytest.mark.parametrize("path", ["staged", "scatter"])
+def test_int4_odd_prompt_write_preserves_prompt_nibble(jparams, path):
+    """Mirror of tests/test_backbone.py::test_int4_odd_prompt_write_preserves_prompt_nibble:
+    decode writes share packed bytes with earlier tokens and must never
+    clobber the prompt's LAST token (at odd slot Lp - 1 = 7 of the bucket,
+    left padding) — through the staged segment (16 steps: the int4 segment
+    alignment) and through the direct-write path with its prev registers."""
+    from neutts_tpu_torch.runtime import batching
+
+    cfg4 = CFG.scaled(kv_dtype="int4")
+    params = _to_torch(jparams)
+    scfg = config.SamplingConfig(greedy=True, min_new_tokens=1)
+    prompt, Lp = [3, 1, 4, 1, 5], 8
+    state = batching.SlotState.create(cfg4, 2, "cpu", seed=3)
+    state = batching.prefill_slots(cfg4, scfg, EOS, params, state,
+                                   torch.tensor([[0, 0, 0] + prompt], dtype=torch.int32),
+                                   torch.tensor([len(prompt)], dtype=torch.int32),
+                                   torch.tensor([0], dtype=torch.int32))
+
+    def deq_last_token(state):
+        return torch.stack([tbb.dequant_kv4(state.cache.k[l, 0:1], state.cache.k_scale[l, 0:1])[
+            0, Lp - 1] for l in range(cfg4.n_layers)])
+
+    before = deq_last_token(state)
+    if path == "staged":
+        state, _ = batching.decode_steps(cfg4, scfg, EOS, batching.SEGMENT_ALIGN_INT4, params,
+                                         state)
+    else:
+        state, _ = batching._decode_steps_scatter(cfg4, scfg, EOS, 5, params, state)
+    assert torch.equal(before, deq_last_token(state))
+    assert int(state.lens[0]) > Lp  # decoding went past the shared byte
 
 
 def test_rope_is_half_split():

@@ -189,7 +189,97 @@ def test_scatter_prefill_kernel_exact(dev):
         assert torch.equal(x[:, 1], before[:, 1]) and torch.equal(x[:, 3:5], before[:, 3:5])
 
 
-@pytest.mark.parametrize("kv_dtype", ["float32", "int8"])
+# --- int4 modes (odd pads, odd lens, an empty row) ---------------------------------
+
+
+def _int4(dev, L, B, T, KD, seed):
+    """Packed int4 values [L, B, T/2, KD] and deinterleaved scales [L, B, T]
+    of unit-normal K/V rows."""
+    q, sc = bb.quantize_kv4(_randn(dev, L, B, T, KD, seed=seed))
+    return bb.pack4_pairs(q).contiguous(), bb.scales4_block(sc).contiguous()
+
+
+@pytest.mark.parametrize("dtype,G,D", [(torch.bfloat16, 7, 64), (torch.float32, 2, 16)])
+def test_decode_attention_int4_kernel(dev, dtype, G, D):
+    L, B, K, T = 3, 4, 2, 320
+    q = _randn(dev, B, K, G, D, dtype=dtype)
+    (kp, ks), (vp, vs) = _int4(dev, L, B, T, K * D, 1), _int4(dev, L, B, T, K * D, 2)
+    lens = torch.tensor([301, 66, 1, 200], dtype=torch.int32, device=dev)
+    pad = torch.tensor([0, 65, 0, 17], dtype=torch.int32, device=dev)
+    before = _build.launches["decode_attention_int4"]
+    got = attn.decode_attention(q, kp, vp, 1, lens, pad, ks, vs)
+    torch.cuda.synchronize()
+    want = attn.decode_attention_plain(q, kp, vp, 1, lens, pad, ks, vs)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    assert _build.launches["decode_attention_int4"] == before + 1
+
+
+@pytest.mark.parametrize("dtype,G,D,step", [(torch.bfloat16, 7, 64, 17), (torch.float32, 2, 16, 0)])
+def test_staged_attention_int4_kernel(dev, dtype, G, D, step):
+    """Even bases (one row empty: staging alone), odd pads."""
+    L, B, K, T, S = 2, 4, 2, 320, 32
+    q = _randn(dev, B, K, G, D, dtype=dtype)
+    (kp, ks), (vp, vs) = _int4(dev, L, B, T, K * D, 1), _int4(dev, L, B, T, K * D, 2)
+    sq = [bb.quantize_kv4(_randn(dev, L, B, S, K * D, seed=s)) for s in (3, 4)]
+    stag = (sq[0][0], sq[1][0], torch.nn.functional.pad(sq[0][1], (0, attn.SEG_PAD - S)),
+            torch.nn.functional.pad(sq[1][1], (0, attn.SEG_PAD - S)))
+    base = torch.tensor([0, 64, 320, 130], dtype=torch.int32, device=dev)
+    pad = torch.tensor([0, 5, 1, 63], dtype=torch.int32, device=dev)
+    args = (q, kp, vp, ks, vs, *stag, 1, step, base, pad)
+    before = _build.launches["decode_attention_staged_int4"]
+    got = attn.decode_attention_staged(*args)
+    torch.cuda.synchronize()
+    want = attn.decode_attention_staged_plain(*args)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    assert _build.launches["decode_attention_staged_int4"] == before + 1
+
+
+def test_reconcile4_kernel_exact(dev):
+    """Packed pairs at byte rows [base/2, base/2 + S/2), scales at their
+    deinterleaved columns; the inactive row untouched; the last row ends at T."""
+    L, B, T, KD, S = 3, 5, 512, 128, 32
+    g = torch.Generator(device=dev).manual_seed(4)
+    bufs = [torch.randint(-119, 120, (L, B, T // 2, KD), generator=g, device=dev,
+                          dtype=torch.int8) for _ in range(2)]
+    bufs += [torch.rand((L, B, T), generator=g, device=dev) for _ in range(2)]
+    stag = [torch.randint(-7, 8, (L, B, S, KD), generator=g, device=dev, dtype=torch.int8)
+            for _ in range(2)]
+    stag += [torch.rand((L, B, attn.SEG_PAD), generator=g, device=dev) for _ in range(2)]
+    base = torch.tensor([0, 64, T - S, 128, 16], dtype=torch.int32, device=dev)
+    active = torch.tensor([True, False, True, True, True], device=dev)
+    got = attn.reconcile_segment4(*(b.clone() for b in bufs), *stag, base, active)
+    torch.cuda.synchronize()
+    want = attn.reconcile_segment4_plain(*(b.clone() for b in bufs), *stag, base, active)
+    for x, y, before in zip(got, want, bufs):
+        assert torch.equal(x, y)
+        assert torch.equal(x[:, 1], before[:, 1])
+
+
+def test_scatter_prefill4_kernel_exact(dev):
+    """Duplicate slots written once, rows not named untouched."""
+    L, B, T, KD, G, Lp = 3, 6, 512, 128, 4, 192
+    g = torch.Generator(device=dev).manual_seed(6)
+    bufs = [torch.randint(-119, 120, (L, B, T // 2, KD), generator=g, device=dev,
+                          dtype=torch.int8) for _ in range(2)]
+    bufs += [torch.rand((L, B, T), generator=g, device=dev) for _ in range(2)]
+    new = [torch.randint(-119, 120, (L, G, Lp // 2, KD), generator=g, device=dev,
+                         dtype=torch.int8) for _ in range(2)]
+    new += [torch.rand((L, G, Lp), generator=g, device=dev) for _ in range(2)]
+    for a in new:
+        a[:, 3] = a[:, 1]
+    slots = torch.tensor([5, 2, 0, 2], dtype=torch.int32, device=dev)
+    primary = torch.tensor([True, True, True, False], device=dev)
+    got = attn.scatter_prefill4(*(b.clone() for b in bufs), *new, slots, primary)
+    torch.cuda.synchronize()
+    want = attn.scatter_prefill4_plain(*(b.clone() for b in bufs), *new, slots, primary)
+    for x, y, before in zip(got, want, bufs):
+        assert torch.equal(x, y)
+        assert torch.equal(x[:, 1], before[:, 1]) and torch.equal(x[:, 3:5], before[:, 3:5])
+
+
+@pytest.mark.parametrize("kv_dtype", ["float32", "int8", "int4"])
 def test_tiny_engine_gpu_matches_cpu(dev, kv_dtype):
     """A small f32 Engine on the card (kernels) emits the greedy tokens of
     the same Engine on the CPU (plain versions)."""
@@ -204,30 +294,30 @@ def test_tiny_engine_gpu_matches_cpu(dev, kv_dtype):
     results = []
     for d in ("cpu", dev):
         eng = Engine(cfg, params, eos_id=eos, n_slots=2, sampling=scfg, segment_steps=8,
-                     device=d)
+                     device=d)  # int4 rounds the segment up to 16 steps
         rids = [eng.submit(p, max_new=24) for p in prompts]
         out = eng.run()
         results.append([out[r] for r in rids])
     assert results[0] == results[1]
 
 
-@pytest.mark.parametrize("quantize", [False, True])
-def test_engine_dispatch_never_waits_for_the_device(dev, quantize):
-    """A dispatch (admission group + one staged int8 segment) queues its work
-    without one host synchronisation, so the pipelined run overlaps the
-    host's bookkeeping with the device; the readback then delivers."""
+@pytest.mark.parametrize("quantize,kv_dtype", [(False, "int8"), (True, "int8"), (True, "int4")])
+def test_engine_dispatch_never_waits_for_the_device(dev, quantize, kv_dtype):
+    """A dispatch (admission group + one staged int8 or int4 segment) queues
+    its work without one host synchronisation, so the pipelined run overlaps
+    the host's bookkeeping with the device; the readback then delivers."""
     from neutts_tpu_torch import config
     from neutts_tpu_torch.serving import Engine
 
-    cfg = config.TINY.scaled(kv_dtype="int8")
+    cfg = config.TINY.scaled(kv_dtype=kv_dtype)
     lay = cfg.layout
     params = bb.init_params(cfg, seed=3, device=dev)
     if quantize:
         params = bb.quantize_params(params)
     eng = Engine(cfg, params, eos_id=lay.speech_gen_end, n_slots=4,
-                 sampling=config.SamplingConfig(min_new_tokens=8).constrained_to(lay),
-                 segment_steps=8, device=dev)
-    rids = [eng.submit([3 + i, 1, 4, 1, 5], max_new=8) for i in range(3)]
+                 sampling=config.SamplingConfig(min_new_tokens=16).constrained_to(lay),
+                 segment_steps=16, device=dev)
+    rids = [eng.submit([3 + i, 1, 4, 1, 5], max_new=16) for i in range(3)]
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
@@ -236,4 +326,4 @@ def test_engine_dispatch_never_waits_for_the_device(dev, quantize):
         torch.cuda.set_sync_debug_mode("default")
     eng.step_collect(pending)
     done = {r.rid: r.tokens for r in eng.pop_finished()}
-    assert sorted(done) == rids and all(len(t) == 8 for t in done.values())
+    assert sorted(done) == rids and all(len(t) == 16 for t in done.values())

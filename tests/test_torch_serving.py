@@ -2,10 +2,11 @@
 
 Greedy outputs of the port's Engine must equal, token for token, the port's
 lockstep `generate` per request and the JAX package's Engine on the same
-weights (handed over through `params_from_numpy`). With the int8 cache the
-port runs its segment-staged path on every device (the plain versions of
-the staged attention, reconcile and admission-write kernels here), where the
-JAX package runs staging only on a TPU. Cases mirror tests/test_serving.py.
+weights (handed over through `params_from_numpy`). With the int8 and int4
+caches the port runs its segment-staged path on every device (the plain
+versions of the staged attention, reconcile and admission-write kernels
+here), where the JAX package runs staging only on a TPU. Cases mirror
+tests/test_serving.py.
 """
 
 import jax
@@ -18,6 +19,7 @@ from neutts_tpu import config as jcfg
 from neutts_tpu.models import backbone as jbb
 from neutts_tpu.serving.engine import Engine as JEngine
 from neutts_tpu_torch import config
+from neutts_tpu_torch.models import backbone as tbb
 from neutts_tpu_torch.models.checkpoint import params_from_numpy
 from neutts_tpu_torch.runtime import batching
 from neutts_tpu_torch.runtime import decode as dec
@@ -49,7 +51,7 @@ def lockstep_greedy(params, prompt, max_new=24, cfg=CFG):
     return dec.extract(dec.generate(cfg, scfg, EOS, max_new, params, toks, lens), 0, EOS)
 
 
-@pytest.mark.parametrize("kv_dtype", ["float32", "int8"])
+@pytest.mark.parametrize("kv_dtype", ["float32", "int8", "int4"])
 def test_engine_matches_lockstep(params, kv_dtype):
     cfg = CFG.scaled(kv_dtype=kv_dtype)
     scfg = config.SamplingConfig(greedy=True, min_new_tokens=2)
@@ -87,13 +89,14 @@ def test_engine_grouped_admission_matches_lockstep(params):
         assert results[rid] == lockstep_greedy(params, prompt, 12, cfg), rid
 
 
-@pytest.mark.parametrize("kv_dtype", ["float32", "int8"])
+@pytest.mark.parametrize("kv_dtype", ["float32", "int8", "int4"])
 @pytest.mark.parametrize("seed", [11, 22, 33])
 def test_engine_randomized_workloads_match_lockstep(params, seed, kv_dtype):
     """Random prompt lengths, budgets, slot counts and segment sizes must
     reproduce the lockstep oracle per request: admission grouping,
     predictive retirement, pipelined collection and slot reuse together
-    (with int8, staged segments and reconciles under slot turnover)."""
+    (with int8 and int4, staged segments and reconciles under slot
+    turnover; int4 segments round up to 16 steps)."""
     cfg = CFG.scaled(kv_dtype=kv_dtype)
     rng = np.random.default_rng(seed)
     n_slots = int(rng.integers(1, 5))
@@ -111,11 +114,12 @@ def test_engine_randomized_workloads_match_lockstep(params, seed, kv_dtype):
         assert results[rid] == lockstep_greedy(params, p, b, cfg), (seed, rid)
 
 
-@pytest.mark.parametrize("kv_dtype", ["float32", "int8"])
+@pytest.mark.parametrize("kv_dtype", ["float32", "int8", "int4", "auto"])
 def test_engine_matches_jax_engine(jparams, params, kv_dtype):
     """The same requests through the port's Engine and the JAX Engine on the
-    same weights: identical greedy tokens (the port stages int8 decode, the
-    JAX Engine on the CPU scatters)."""
+    same weights: identical greedy tokens and stats (the port stages int8
+    and int4 decode, the JAX Engine on the CPU scatters; "auto" resolves to
+    int4 in both, with 16-step segments)."""
     scfg = dict(greedy=True, min_new_tokens=2)
     prompts = [[3, 1, 4, 1, 5], [9, 2, 6], [2, 7, 1, 8, 2, 8], [11, 12]]
     budgets = [20, 9, 14, 17]
@@ -125,6 +129,8 @@ def test_engine_matches_jax_engine(jparams, params, kv_dtype):
                    sampling=jcfg.SamplingConfig(**scfg), segment_steps=8)
     trids = [teng.submit(p, max_new=b) for p, b in zip(prompts, budgets)]
     jrids = [jeng.submit(p, max_new=b) for p, b in zip(prompts, budgets)]
+    assert teng.cfg.kv_dtype == jeng.cfg.kv_dtype != "auto"
+    assert teng.segment_steps == jeng.segment_steps
     tres, jres = teng.run(), jeng.run()
     for tr, jr in zip(trids, jrids):
         assert tres[tr] == jres[jr], (tr, tres[tr][:6], jres[jr][:6])
@@ -147,28 +153,46 @@ def _admit(params, cfg, prompts, Lp, n_slots, pad_to=None):
                                   torch.tensor([s for s, _ in group], dtype=torch.int32))
 
 
-@pytest.mark.parametrize("kv_dtype,Lp", [("float32", 8), ("int8", 64), ("int8", 8)])
+@pytest.mark.parametrize("kv_dtype,Lp", [
+    ("float32", 8), ("int8", 64), ("int8", 8), ("int4", 64), ("int4", 8),
+])
 def test_prefill_slots_duplicate_padding_idempotent(params, kv_dtype, Lp):
     """Duplicated trailing rows (group padding) leave the same state as the
-    real rows alone; with int8 every bucket takes the scatter_prefill write."""
+    real rows alone; with int8 (int4) every bucket takes the scatter_prefill
+    (scatter_prefill4) write."""
     cfg = CFG.scaled(kv_dtype=kv_dtype)
     prompts = [[5, 6, 7], [8, 9, 1, 2]]
     plain = _admit(params, cfg, prompts, Lp, 4)
     padded = _admit(params, cfg, prompts, Lp, 4, pad_to=4)
     for name in ("token", "lens", "pad", "prompt_lens", "active"):
         assert torch.equal(getattr(plain, name), getattr(padded, name)), name
-    assert torch.equal(plain.cache.k, padded.cache.k)
-    assert torch.equal(plain.cache.v, padded.cache.v)
+    for name in ("k", "v", "k_scale", "v_scale", "k_prev", "v_prev"):
+        a, b = getattr(plain.cache, name), getattr(padded.cache, name)
+        assert (a is None and b is None) or torch.equal(a, b), name
 
 
-@pytest.mark.parametrize("kv_dtype", ["float32", "int8"])
+def test_prefill_slots_int4_rejects_odd_bucket(params):
+    """An odd admission bucket cannot hold whole nibble pairs: it raises and
+    leaves the cache as it was."""
+    cfg = CFG.scaled(kv_dtype="int4")
+    state = batching.SlotState.create(cfg, 2, "cpu")
+    before = state.cache.k.clone()
+    with pytest.raises(ValueError):
+        batching.prefill_slots(cfg, config.SamplingConfig(greedy=True), EOS, params, state,
+                               torch.ones((1, 7), dtype=torch.int32),
+                               torch.tensor([5], dtype=torch.int32),
+                               torch.tensor([0], dtype=torch.int32))
+    assert torch.equal(state.cache.k, before)
+
+
+@pytest.mark.parametrize("kv_dtype", ["float32", "int8", "int4"])
 def test_prefill_slot_matches_jax(jparams, params, kv_dtype):
     """Single-request admission into slot 1 of 3 against the JAX
     `prefill_slot` on the same weights: equal per-slot state, the cache's
-    attended slots [pad, T) within f32 rounding (int8: within one
-    quantization step). Left-pad slots are never attended, and past the
-    first layer their values depend on how a fully masked query row is
-    handled."""
+    attended slots [pad, T) within f32 rounding (int8, int4: within one
+    quantization step; int4 also the prev registers, the last prompt
+    token's values). Left-pad slots are never attended, and past the first
+    layer their values depend on how a fully masked query row is handled."""
     from neutts_tpu.runtime import batching as jbatching
 
     cfg, jc = CFG.scaled(kv_dtype=kv_dtype), JCFG.scaled(kv_dtype=kv_dtype)
@@ -186,6 +210,20 @@ def test_prefill_slot_matches_jax(jparams, params, kv_dtype):
         np.testing.assert_array_equal(getattr(t, name).numpy(), np.asarray(getattr(j, name)),
                                       err_msg=name)
     pad = Lp - len(prompt)
+    if t.cache.int4:
+        # nibbles equal on the real slots, scales to 1e-5 (f32 summation
+        # order), prev registers equal
+        half = t.cache.k_scale.shape[2] // 2
+        cols = [p // 2 + (p % 2) * half for p in range(pad, Lp)]
+        for name in ("k", "v", "k_scale", "v_scale", "k_prev", "v_prev"):
+            tv, jv = getattr(t.cache, name), torch.from_numpy(np.array(getattr(j.cache, name)))
+            if name in ("k", "v"):
+                tv, jv = (torch.stack(tbb.unpack4(x), dim=3).flatten(2, 3)[:, :, pad:Lp]
+                          for x in (tv, jv))
+            elif name in ("k_scale", "v_scale"):
+                tv, jv = tv[:, :, cols], jv[:, :, cols]
+            torch.testing.assert_close(tv, jv, rtol=1e-5, atol=0, msg=name)
+        return
     for name, scale in (("k", "k_scale"), ("v", "v_scale")):
         tv, jv = getattr(t.cache, name).float(), np.asarray(getattr(j.cache, name), np.float32)
         if t.cache.quantized:
@@ -219,6 +257,43 @@ def test_staged_decode_matches_scatter_path(params):
             da, db = (getattr(s.cache, name)[:, b, :n].float()
                       * getattr(s.cache, scale)[:, b, :n, None] for s in (sA, sB))
             np.testing.assert_allclose(da.numpy(), db.numpy(), atol=0.15, rtol=0.05)
+
+
+def test_staged_decode_matches_scatter_path_int4(params):
+    """Mirror of tests/test_serving.py::test_staged_decode_matches_scatter_path_int4:
+    the int4 staged segments (unpacked staging, staged attention, packing
+    reconcile at even bases) against the int4 direct-write path over two
+    16-step segments. Tokens, lens and active flags equal; the prompt bytes
+    bit-exact; the decoded region within one nibble step and 1e-5 relative
+    on the scales: the two plain attentions reduce in different orders
+    ([T + S] concatenated against [T]), so hidden states differ by f32 ulps
+    and a quantizer tie may flip one nibble. A misplaced byte or scale puts
+    unrelated values there, far outside these bounds."""
+    cfg4 = CFG.scaled(kv_dtype="int4")
+    scfg = config.SamplingConfig(greedy=True, min_new_tokens=1)
+    prompts = [[3, 1, 4, 1, 5], [9, 2, 6], [2, 7, 1, 8, 2, 8], [5]]
+    Lp, S = 16, batching.SEGMENT_ALIGN_INT4
+    sA = _admit(params, cfg4, prompts, Lp, 4)
+    sB = _admit(params, cfg4, prompts, Lp, 4)
+    for _ in range(2):
+        sA, outA = batching._decode_steps_staged(cfg4, scfg, EOS, S, params, sA)
+        sB, outB = batching._decode_steps_scatter(cfg4, scfg, EOS, S, params, sB)
+        assert torch.equal(outA, outB)
+    assert torch.equal(sA.lens, sB.lens) and torch.equal(sA.active, sB.active)
+    assert torch.equal(sA.cache.k[:, :, :Lp // 2], sB.cache.k[:, :, :Lp // 2])
+    half = sA.cache.k_scale.shape[2] // 2
+    for b in range(len(prompts)):
+        n = int(sA.lens[b])
+        for name in ("k", "v"):
+            a, c = (torch.stack(tbb.unpack4(getattr(s.cache, name)[:, b, : n // 2]))
+                    for s in (sA, sB))
+            assert int((a.int() - c.int()).abs().max()) <= 1, (name, b)
+        for name in ("k_scale", "v_scale"):
+            a, c = (getattr(s.cache, name)[:, b] for s in (sA, sB))
+            np.testing.assert_allclose(a[:, : (n + 1) // 2].numpy(), c[:, : (n + 1) // 2].numpy(),
+                                       rtol=1e-5)
+            np.testing.assert_allclose(a[:, half: half + n // 2].numpy(),
+                                       c[:, half: half + n // 2].numpy(), rtol=1e-5)
 
 
 def test_predictive_retirement_caps_frees_at_queue_depth(params):
@@ -273,12 +348,9 @@ def test_cache_slack_and_slot_length():
     assert batching.CACHE_SLACK == 256
     assert batching.slot_cache_len(config.AIR) == 2304
     assert batching.slot_cache_len(CFG) == 768
-
-
-@pytest.mark.parametrize("kv_dtype", ["int4", "auto"])
-def test_int4_and_auto_not_ported_yet(params, kv_dtype):
-    with pytest.raises(NotImplementedError):
-        engine(params, CFG.scaled(kv_dtype=kv_dtype))
+    # int4: 512-aligned, as in the JAX package (packed rows hold half)
+    assert batching.slot_cache_len(config.AIR.scaled(kv_dtype="int4")) == 2560
+    assert batching.slot_cache_len(CFG.scaled(kv_dtype="int4")) == 1024
 
 
 def test_engine_defaults_to_cuda(params):
