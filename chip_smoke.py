@@ -11,7 +11,13 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
   3. each kernel mode against its plain PyTorch version at the Air shapes of
      the main paths (bf16, int8 and int4 caches): max error vs tolerance
      (exact for the four slot copies), kernel / plain / library times and
-     the card's bound for the same work; then the whole backbone, and a
+     the card's bound for the same work, and each kernel's device time
+     (events around calls queued behind a spin kernel: back to back with a
+     warm L2, and one at a time after an L2 flush); for decode attention
+     (#1) and prefill attention (#5) also the split count NSPLIT, the prefill
+     tile, and the other main-path shapes of each (#1 bf16 at B 1, T 2048
+     and at B 16 of the bf16 slot cache; #5 at the admission shape B 64,
+     S 512); then the whole backbone, and a
      small serving Engine, on the GPU against the CPU (plain versions) on a
      small f32 model, with f32, int8 and int4 caches;
   4. main path, W8A8: NeuTTS.initialize_random(AIR, CODEC, quantize="int8")
@@ -105,9 +111,12 @@ def main() -> int:
         _build.library(src)
     print(f"[2] kernels built in {build_s:.1f} s ({', '.join(_build.SOURCES)})")
     for log in sorted(_build.BUILD_DIR.glob("*.log")):
+        entry = "?"
         for line in log.read_text().splitlines():
-            if "registers" in line or "spill" in line and "0 bytes spill" not in line:
-                print(f"    {log.stem}: {line.strip()}")
+            if "Compiling entry function" in line:
+                entry = line.split("'")[1] if "'" in line else line.strip()
+            elif "registers" in line or "spill" in line and "0 bytes spill" not in line:
+                print(f"    {log.stem}: {entry[:72]}: {line.split(':', 1)[-1].strip()}")
     report["build_s"] = build_s
 
     # --- 3. kernels against their plain versions ---------------------------------------
@@ -123,6 +132,53 @@ def main() -> int:
         torch.cuda.synchronize()
         return s.elapsed_time(e) / iters
 
+    SPIN = 200_000_000  # cycles of torch.cuda._sleep: ~0.1 s on an H100
+    # written between cold calls: five times the H100's 50 MB L2, so a call
+    # finds none of its inputs there and reads them from HBM, as its bound
+    # assumes
+    l2_flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+
+    def device_ms(fn, iters):
+        """Device time per call, (warm L2, L2 flushed). A spin kernel holds
+        the stream while the host queues the calls, so the events time the
+        device, not the host's launch rate (which back-to-back calls timed by
+        events alone, time_ms, read when a kernel is shorter than its
+        wrapper's Python). Warm: `iters` calls back to back, inputs that fit
+        in L2 served from there. Flushed: each call after a 256 MB write,
+        timed alone by its own pair of events. (A torch.profiler trace also
+        gives device time, but a profiling session slows every later launch
+        of the process: on an H100 the host-bound main paths after it ran
+        25-35% slower.)"""
+        for i in range(3):
+            fn(i)
+        ev = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+              for _ in range(iters + 1)]
+        torch.cuda.synchronize()
+        torch.cuda._sleep(SPIN)
+        t0 = time.perf_counter()
+        ev[-1][0].record()
+        for i in range(iters):
+            fn(i)
+        ev[-1][1].record()
+        for i in range(iters):
+            l2_flush.zero_()
+            ev[i][0].record()
+            fn(i)
+            ev[i][1].record()
+        queued_ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        require(queued_ms < 0.8 * spin_ms, f"queueing {2 * iters} calls took {queued_ms:.1f} "
+                f"ms, near the {spin_ms:.1f} ms spin: device_ms would time the host")
+        warm = ev[-1][0].elapsed_time(ev[-1][1]) / iters
+        return warm, sum(s.elapsed_time(e) for s, e in ev[:iters]) / iters
+
+    s0, s1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    s0.record()
+    torch.cuda._sleep(SPIN)
+    s1.record()
+    torch.cuda.synchronize()
+    spin_ms = s0.elapsed_time(s1)
+
     gen = torch.Generator(device=dev).manual_seed(1234)
 
     def randn(*shape, dtype=torch.bfloat16, scale=1.0):
@@ -133,11 +189,22 @@ def main() -> int:
     H = K * G
     results: dict = {}
 
+    shapes: dict = {}  # kernel #1 and #5 at the other main-path shapes
+
+    def row_tolerance(want):
+        # each row within 1% of its largest |output| (about 2.5 bf16 ulp
+        # there): one token or chunk dropped, misplaced, weighted wrongly in
+        # a merge or read from the wrong nibble moves a row past it
+        return 1e-2 * want.float().abs().amax(dim=(1, 2, 3), keepdim=True)
+
     def record(key, got, want, tol, ms, plain_ms, library_ms, nbytes, ops, peak, replaces,
-               source):
+               source, *, dev_ms, into=results):
         """One kernel's entry; got/want are a tensor or a tuple of tensors.
         tol 0 asks for equality; a tensor tol is a limit per element
-        (broadcast against want), reported as its largest value."""
+        (broadcast against want), reported as its largest value. dev_ms is
+        device_ms's (warm L2, L2 flushed); the flushed time is the one
+        comparable with the bound. Entries of `shapes` are extra shapes of a
+        kernel already in `results`."""
         pairs = list(zip(got, want)) if isinstance(got, tuple) else [(got, want)]
         diffs = [(a.float() - b.float()).abs() for a, b in pairs]
         err = max(float(d.max()) for d in diffs)
@@ -148,14 +215,16 @@ def main() -> int:
             ok = np.isfinite(err) and all(bool((d <= tol).all()) for d in diffs)
             tol = float(torch.as_tensor(tol).max())
         bms, by = bound(nbytes, ops, peak)
-        results[key] = {
+        into[key] = {
             "name": key, "route": "cuda", "source": source, "replaces": replaces,
             "launches": 0, "max_abs_err": err, "tol": tol, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bms, "bound_by": by, "library_ms": library_ms,
+            "device_warm_ms": dev_ms[0], "device_ms": dev_ms[1],
         }
         lib = "n/a" if library_ms is None else f"{library_ms:.4f}"
-        print(f"[3] {key}: max_abs_err {err:.3e} (tol {tol:.3e}{note})"
-              f" | ms {ms:.4f} | plain {plain_ms:.4f} | library {lib} | bound {bms:.4f} ({by})")
+        print(f"[3] {key}: max_abs_err {err:.3e} (tol {tol:.3e}{note}) | ms {ms:.4f} | device "
+              f"{dev_ms[0]:.4f} warm L2, {dev_ms[1]:.4f} L2 flushed | plain {plain_ms:.4f} | "
+              f"library {lib} | bound {bms:.4f} ({by})")
         require(ok, f"{key} disagrees with its plain version")
 
     # decode attention over the stacked Air cache, ragged rows
@@ -177,6 +246,7 @@ def main() -> int:
         got = attn.decode_attention(*args(L // 2))
         want = attn.decode_attention_plain(*args(L // 2))
         ms = time_ms(lambda i: attn.decode_attention(*args(i)), 200)
+        dms = device_ms(lambda i: attn.decode_attention(*args(i)), 50)
         plain_ms = time_ms(lambda i: attn.decode_attention_plain(*args(i)), 10)
         # library: masked SDPA on one layer (bf16; int8 dequantized outside the timing)
         lk = ck[L // 2].float() * ks[L // 2][..., None] if mode == "int8" else ck[L // 2]
@@ -191,32 +261,85 @@ def main() -> int:
             nbytes += 2 * live * 4
         record(f"decode_attention_{mode}", got, want, 2e-2, ms, plain_ms, lib_ms, nbytes,
                4.0 * H * D * live, PEAK_BF16, "neutts_tpu/ops/attention.py:99",
-               "neutts_tpu_torch/csrc/decode_attention.cu")
+               "neutts_tpu_torch/csrc/decode_attention.cu", dev_ms=dms)
         del ck, cv, lk, lv
+    print(f"[3] decode_attention B {B} T {T}: NSPLIT {attn.decode_splits(B, K, T, dev)}")
 
-    # prefill attention, B = 8, S = 512, ragged left pads
-    S = 512
-    pads = torch.tensor([0, 3, 100, 255, 511, 64, 17, 200], dtype=torch.int32, device=dev)
-    pq, pk, pv = randn(B, S, H, D), randn(B, S, K, D), randn(B, S, K, D)
-    got = attn.prefill_attention(pq, pk, pv, pads)
-    want = attn.prefill_attention_plain(pq, pk, pv, pads)
-    ms = time_ms(lambda i: attn.prefill_attention(pq, pk, pv, pads), 50)
-    plain_ms = time_ms(lambda i: attn.prefill_attention_plain(pq, pk, pv, pads), 5)
-    idx = torch.arange(S, device=dev)
-    pmask = ((idx[None, None, :] <= idx[None, :, None])
-             & (idx[None, None, :] >= pads[:, None, None]))[:, None]
-    lq = pq.transpose(1, 2)
-    lk = pk.transpose(1, 2).repeat_interleave(G, 1)
-    lv = pv.transpose(1, 2).repeat_interleave(G, 1)
-    lib_ms = time_ms(lambda i: torch.nn.functional.scaled_dot_product_attention(
-        lq, lk, lv, attn_mask=pmask), 50)
-    m = (S - pads).double()
-    pairs = float((m * (m + 1) / 2).sum())
-    record("prefill_attention", got, want, 2e-2, ms, plain_ms, lib_ms,
-           2 * B * S * H * D * 2 + 2 * B * S * K * D * 2 + 4 * B, 4.0 * H * D * pairs,
-           PEAK_BF16, "neutts_tpu/ops/attention.py:1525",
-           "neutts_tpu_torch/csrc/prefill_attention.cu")
-    del pq, pk, pv, lq, lk, lv
+    def decode_bf16_shape(key, Bx, Tx, lens_x, pad_x):
+        """Kernel #1, bf16, at another main-path shape (ragged rows)."""
+        lx = torch.tensor(lens_x, dtype=torch.int32, device=dev)
+        px = torch.tensor(pad_x, dtype=torch.int32, device=dev)
+        qx = randn(Bx, K, G, D)
+        ck, cv = randn(L, Bx, Tx, K * D), randn(L, Bx, Tx, K * D)
+        args = lambda i: (qx, ck, cv, i % L, lx, px)  # noqa: E731
+        got = attn.decode_attention(*args(L // 2))
+        want = attn.decode_attention_plain(*args(L // 2))
+        ms = time_ms(lambda i: attn.decode_attention(*args(i)), 200)
+        dms = device_ms(lambda i: attn.decode_attention(*args(i)), 50)
+        plain_ms = time_ms(lambda i: attn.decode_attention_plain(*args(i)), 10)
+        tx = torch.arange(Tx, device=dev)
+        mx = ((tx[None] < lx[:, None]) & (tx[None] >= px[:, None]))[:, None, None]
+        lk = ck[L // 2].reshape(Bx, Tx, K, D).transpose(1, 2).repeat_interleave(G, 1)
+        lv = cv[L // 2].reshape(Bx, Tx, K, D).transpose(1, 2).repeat_interleave(G, 1)
+        lq = qx.reshape(Bx, 1, H, D).transpose(1, 2)
+        lib_ms = time_ms(lambda i: torch.nn.functional.scaled_dot_product_attention(
+            lq, lk, lv, attn_mask=mx), 200)
+        livex = int((lx - px).clamp(min=0).sum())
+        nsplit = attn.decode_splits(Bx, K, Tx, dev)
+        print(f"[3] {key}: B {Bx} T {Tx}, {livex} live tokens, NSPLIT {nsplit}")
+        record(key, got, want, row_tolerance(want), ms, plain_ms, lib_ms,
+               2 * Bx * H * D * 2 + 2 * livex * K * D * 2 + 8 * Bx, 4.0 * H * D * livex,
+               PEAK_BF16, "neutts_tpu/ops/attention.py:99",
+               "neutts_tpu_torch/csrc/decode_attention.cu", into=shapes, dev_ms=dms)
+        shapes[key].update(B=Bx, T=Tx, live_tokens=livex, nsplit=nsplit)
+
+    # the (b) path: bf16 infer, batch 1, one row of ~1,900 live tokens
+    decode_bf16_shape("decode_attention_bf16@B1_T2048", 1, 2048, [1903], [5])
+    # the (d) path: bf16 serving, 16 slots of the slot cache, ragged rows
+    Td = batching.slot_cache_len(cfg)
+    rs3 = np.random.default_rng(3)
+    lens_d = rs3.integers(300, Td + 1, 16)
+    decode_bf16_shape(f"decode_attention_bf16@B16_T{Td}", 16, Td, lens_d.tolist(),
+                      np.minimum(lens_d, rs3.integers(0, 133, 16)).tolist())
+    torch.cuda.empty_cache()
+
+    # prefill attention, B = 8, S = 512, ragged left pads; then the
+    # admission shape B = 64, S = 512 (prompts of 380-512 tokens)
+    def prefill_shape(key, Bx, S, pads_x, into):
+        pads = torch.tensor(pads_x, dtype=torch.int32, device=dev)
+        pq, pk, pv = randn(Bx, S, H, D), randn(Bx, S, K, D), randn(Bx, S, K, D)
+        got = attn.prefill_attention(pq, pk, pv, pads)
+        want = attn.prefill_attention_plain(pq, pk, pv, pads)
+        ms = time_ms(lambda i: attn.prefill_attention(pq, pk, pv, pads), 50)
+        dms = device_ms(lambda i: attn.prefill_attention(pq, pk, pv, pads), 20)
+        plain_ms = time_ms(lambda i: attn.prefill_attention_plain(pq, pk, pv, pads), 5)
+        idx = torch.arange(S, device=dev)
+        pmask = ((idx[None, None, :] <= idx[None, :, None])
+                 & (idx[None, None, :] >= pads[:, None, None]))[:, None]
+        lq = pq.transpose(1, 2)
+        lk = pk.transpose(1, 2).repeat_interleave(G, 1)
+        lv = pv.transpose(1, 2).repeat_interleave(G, 1)
+        lib_ms = time_ms(lambda i: torch.nn.functional.scaled_dot_product_attention(
+            lq, lk, lv, attn_mask=pmask), 50)
+        m = (S - pads).clamp(min=0).double()
+        pairs = float((m * (m + 1) / 2).sum())
+        # q, k and v are read for the live rows only (pad rows are written as
+        # zeros, key tiles below the pad skipped); out is written in full
+        rows = float(m.sum())
+        record(key, got, want, 2e-2, ms, plain_ms, lib_ms,
+               rows * (H + 2 * K) * D * 2 + Bx * S * H * D * 2 + 4 * Bx, 4.0 * H * D * pairs,
+               PEAK_BF16, "neutts_tpu/ops/attention.py:1525",
+               "neutts_tpu_torch/csrc/prefill_attention.cu", into=into, dev_ms=dms)
+
+    tile = attn.prefill_tile(G, D, torch.bfloat16)
+    print(f"[3] prefill_attention bf16 tile: {tile['query_positions']} query positions x "
+          f"{tile['heads']} heads per block, 64-key K/V tiles, {tile['threads']} threads, "
+          f"{tile['smem_bytes']} B shared")
+    report["prefill_tile"] = tile
+    prefill_shape("prefill_attention", B, 512, [0, 3, 100, 255, 511, 64, 17, 200], results)
+    prefill_shape("prefill_attention@B64_S512", 64, 512,
+                  np.random.default_rng(4).integers(0, 133, 64).tolist(), shapes)
+    torch.cuda.empty_cache()
 
     # W8A8 projections at M = 4096 prompt tokens (B = 8 x a 512 bucket)
     M, Dm, Fm, N = 4096, cfg.hidden_size, cfg.intermediate_size, cfg.q_dim + 2 * cfg.kv_dim
@@ -228,10 +351,11 @@ def main() -> int:
     got = mlp_ops.fused_qkv(*qargs)
     want = mlp_ops.fused_qkv_plain(*qargs)
     ms = time_ms(lambda i: mlp_ops.fused_qkv(*qargs), 20)
+    dms = device_ms(lambda i: mlp_ops.fused_qkv(*qargs), 20)
     plain_ms = time_ms(lambda i: mlp_ops.fused_qkv_plain(*qargs), 5)
     record("fused_qkv", got, want, 2e-2 * float(want.float().abs().max()), ms, plain_ms, None,
            M * Dm * 2 + Dm * N + 2 * N * 4 + Dm * 2 + M * N * 2, 2.0 * M * Dm * N, PEAK_INT8,
-           "neutts_tpu/ops/mlp.py:234", "neutts_tpu_torch/csrc/w8a8.cu")
+           "neutts_tpu/ops/mlp.py:234", "neutts_tpu_torch/csrc/w8a8.cu", dev_ms=dms)
     wg, wu = (bb.quantize_weight(randn(Dm, Fm, dtype=torch.float32, scale=Dm**-0.5))
               for _ in range(2))
     wd = bb.quantize_weight(randn(Fm, Dm, dtype=torch.float32, scale=Fm**-0.5))
@@ -239,10 +363,11 @@ def main() -> int:
     got = mlp_ops.fused_mlp(*margs)
     want = mlp_ops.fused_mlp_plain(*margs)
     ms = time_ms(lambda i: mlp_ops.fused_mlp(*margs), 10)
+    dms = device_ms(lambda i: mlp_ops.fused_mlp(*margs), 10)
     plain_ms = time_ms(lambda i: mlp_ops.fused_mlp_plain(*margs), 3)
     record("fused_mlp", got, want, 3e-2 * float(want.float().abs().max()), ms, plain_ms, None,
            2 * M * Dm * 2 + 3 * Dm * Fm + (2 * Fm + Dm) * 4 + Dm * 2, 6.0 * M * Dm * Fm,
-           PEAK_INT8, "neutts_tpu/ops/mlp.py:103", "neutts_tpu_torch/csrc/w8a8.cu")
+           PEAK_INT8, "neutts_tpu/ops/mlp.py:103", "neutts_tpu_torch/csrc/w8a8.cu", dev_ms=dms)
     del x, wqkv, wg, wu, wd, got, want
     torch.cuda.empty_cache()
 
@@ -281,6 +406,7 @@ def main() -> int:
     got = attn.decode_attention_staged(*sargs(L // 2))
     want = attn.decode_attention_staged_plain(*sargs(L // 2))
     ms = time_ms(lambda i: attn.decode_attention_staged(*sargs(i)), 200)
+    dms = device_ms(lambda i: attn.decode_attention_staged(*sargs(i)), 20)
     plain_ms = time_ms(lambda i: attn.decode_attention_staged_plain(*sargs(i)), 5)
     # library: masked SDPA over a dequantized bf16 copy of cache + staging
     # of one layer, made outside the timing
@@ -298,12 +424,10 @@ def main() -> int:
     lib_ms = time_ms(lambda i: torch.nn.functional.scaled_dot_product_attention(
         lq, lk, lv, attn_mask=smask), 100)
     n_att = live + Bs * (step + 1)
-    # each row within 1% of its largest |output| (about 2.5 bf16 ulp there):
-    # one settled or staging token dropped or misplaced moves a row past it
-    row_tol = 1e-2 * want.float().abs().amax(dim=(1, 2, 3), keepdim=True)
-    record("decode_attention_staged", got, want, row_tol, ms, plain_ms, lib_ms,
+    record("decode_attention_staged", got, want, row_tolerance(want), ms, plain_ms, lib_ms,
            2 * Bs * H * D * 2 + n_att * (2 * KD + 8) + 8 * Bs, 4.0 * H * D * n_att, PEAK_BF16,
-           "neutts_tpu/ops/attention.py:548", "neutts_tpu_torch/csrc/staged_attention.cu")
+           "neutts_tpu/ops/attention.py:548", "neutts_tpu_torch/csrc/staged_attention.cu",
+           dev_ms=dms)
     del lk, lv, got, want
 
     # segment reconcile: about half the rows active, 8-aligned bases
@@ -316,6 +440,7 @@ def main() -> int:
     want = attn.reconcile_segment_plain(*(b.clone() for b in bufs), *stag, rbase, ract)
     work = [b.clone() for b in bufs]
     ms = time_ms(lambda i: attn.reconcile_segment(*work, *stag, rbase, ract), 100)
+    dms = device_ms(lambda i: attn.reconcile_segment(*work, *stag, rbase, ract), 20)
     plain_ms = time_ms(lambda i: attn.reconcile_segment_plain(*work, *stag, rbase, ract), 5)
     # library: scatter_ along time over the [B, S] column index; inactive rows
     # scatter their own current values (gathered outside the timing)
@@ -336,7 +461,7 @@ def main() -> int:
     n_act = int(ract_np.sum())
     record("reconcile_segment", got, want, 0, ms, plain_ms, lib_ms,
            2 * n_act * L * S * (2 * KD + 8) + 5 * Bs, 0.0, PEAK_INT8,
-           "neutts_tpu/ops/attention.py:1039", "neutts_tpu_torch/csrc/slot_copy.cu")
+           "neutts_tpu/ops/attention.py:1039", "neutts_tpu_torch/csrc/slot_copy.cu", dev_ms=dms)
     del got, want, work, src, idx_v
 
     # admission write: a group of 64 rows (8 of them group padding that
@@ -355,6 +480,7 @@ def main() -> int:
     want = attn.scatter_prefill_plain(*(b.clone() for b in bufs), *new, pslots, primary)
     work = [b.clone() for b in bufs]
     ms = time_ms(lambda i: attn.scatter_prefill(*work, *new, pslots, primary), 100)
+    dms = device_ms(lambda i: attn.scatter_prefill(*work, *new, pslots, primary), 20)
     plain_ms = time_ms(lambda i: attn.scatter_prefill_plain(*work, *new, pslots, primary), 5)
     # library: index_copy_ of the primary rows (selected outside the timing)
     prim = primary.nonzero()[:, 0]
@@ -368,7 +494,7 @@ def main() -> int:
     lib_ms = time_ms(lib_prefill, 100)
     record("scatter_prefill", got, want, 0, ms, plain_ms, lib_ms,
            2 * len(prim) * L * Lp * (2 * KD + 8) + 5 * G8, 0.0, PEAK_INT8,
-           "neutts_tpu/ops/attention.py:1290", "neutts_tpu_torch/csrc/slot_copy.cu")
+           "neutts_tpu/ops/attention.py:1290", "neutts_tpu_torch/csrc/slot_copy.cu", dev_ms=dms)
     del got, want, work, new, psrc, ck, cv, ks, vs, stag, bufs
     torch.cuda.empty_cache()
 
@@ -391,12 +517,6 @@ def main() -> int:
             q4[lyr], sc[lyr] = bb.quantize_kv4(randn(*shape[1:]))
         return q4, sc
 
-    def row_tolerance(want):
-        # each row within 1% of its largest |output| (about 2.5 bf16 ulp
-        # there): one token dropped, misplaced or read from the wrong nibble
-        # moves a row past it
-        return 1e-2 * want.float().abs().amax(dim=(1, 2, 3), keepdim=True)
-
     # decode attention over the stacked int4 Air cache: odd lens and pads
     T = 1024
     lens = torch.tensor([1001, 1024, 799, 960, 1023, 700, 1010, 901], dtype=torch.int32,
@@ -408,6 +528,7 @@ def main() -> int:
     got = attn.decode_attention(*args(L // 2))
     want = attn.decode_attention_plain(*args(L // 2))
     ms = time_ms(lambda i: attn.decode_attention(*args(i)), 200)
+    dms = device_ms(lambda i: attn.decode_attention(*args(i)), 50)
     plain_ms = time_ms(lambda i: attn.decode_attention_plain(*args(i)), 10)
     lk = bb.dequant_kv4(ck[L // 2], ks[L // 2]).to(torch.bfloat16)
     lv = bb.dequant_kv4(cv[L // 2], vs[L // 2]).to(torch.bfloat16)
@@ -419,7 +540,8 @@ def main() -> int:
     # int4: half a byte per value (K and V), the same 4-byte scales as int8
     record("decode_attention_int4", got, want, row_tolerance(want), ms, plain_ms, lib_ms,
            2 * B * H * D * 2 + live * (K * D + 8) + 8 * B, 4.0 * H * D * live, PEAK_BF16,
-           "neutts_tpu/ops/attention.py:99", "neutts_tpu_torch/csrc/decode_attention.cu")
+           "neutts_tpu/ops/attention.py:99", "neutts_tpu_torch/csrc/decode_attention.cu",
+           dev_ms=dms)
     del ck, cv, ks, vs, lk, lv, got, want
 
     # staged decode attention at the int4 serving shapes: T = 2560, ragged
@@ -438,6 +560,7 @@ def main() -> int:
     got = attn.decode_attention_staged(*sargs(L // 2))
     want = attn.decode_attention_staged_plain(*sargs(L // 2))
     ms = time_ms(lambda i: attn.decode_attention_staged(*sargs(i)), 200)
+    dms = device_ms(lambda i: attn.decode_attention_staged(*sargs(i)), 20)
     plain_ms = time_ms(lambda i: attn.decode_attention_staged_plain(*sargs(i)), 5)
     lyr = L // 2
     lk = torch.cat([bb.dequant_kv4(ck[lyr], ks[lyr]),
@@ -455,7 +578,7 @@ def main() -> int:
     record("decode_attention_staged_int4", got, want, row_tolerance(want), ms, plain_ms, lib_ms,
            2 * Bs * H * D * 2 + live * (KD + 8) + n_stag * (2 * KD + 8) + 8 * Bs,
            4.0 * H * D * (live + n_stag), PEAK_BF16, "neutts_tpu/ops/attention.py:548",
-           "neutts_tpu_torch/csrc/staged_attention.cu")
+           "neutts_tpu_torch/csrc/staged_attention.cu", dev_ms=dms)
     del lk, lv, got, want
 
     # int4 segment reconcile: bases multiples of 16, about half the rows active
@@ -468,6 +591,7 @@ def main() -> int:
     want = attn.reconcile_segment4_plain(*(b.clone() for b in bufs), *stag, rbase, ract)
     work = [b.clone() for b in bufs]
     ms = time_ms(lambda i: attn.reconcile_segment4(*work, *stag, rbase, ract), 100)
+    dms = device_ms(lambda i: attn.reconcile_segment4(*work, *stag, rbase, ract), 20)
     plain_ms = time_ms(lambda i: attn.reconcile_segment4_plain(*work, *stag, rbase, ract), 5)
     # library: scatter_ of the packed staging bytes along the byte axis and of
     # the scales along their deinterleaved columns; inactive rows scatter
@@ -492,7 +616,7 @@ def main() -> int:
     # written (K and V), 4-byte scales read and written
     record("reconcile_segment4", got, want, 0, ms, plain_ms, lib_ms,
            n_act * L * S * (3 * KD + 16) + 5 * Bs, 0.0, PEAK_INT8,
-           "neutts_tpu/ops/attention.py:1039", "neutts_tpu_torch/csrc/slot_copy.cu")
+           "neutts_tpu/ops/attention.py:1039", "neutts_tpu_torch/csrc/slot_copy.cu", dev_ms=dms)
     del got, want, src, idx_v
 
     # int4 admission write: a group of 64 rows (8 duplicates), Lp 512, into the
@@ -505,6 +629,7 @@ def main() -> int:
     got = attn.scatter_prefill4(*(b.clone() for b in bufs), *new, pslots, primary)
     want = attn.scatter_prefill4_plain(*(b.clone() for b in bufs), *new, pslots, primary)
     ms = time_ms(lambda i: attn.scatter_prefill4(*work, *new, pslots, primary), 100)
+    dms = device_ms(lambda i: attn.scatter_prefill4(*work, *new, pslots, primary), 20)
     plain_ms = time_ms(lambda i: attn.scatter_prefill4_plain(*work, *new, pslots, primary), 5)
     # library: index_copy_ of the primary rows' packed bytes, scatter_ of their
     # deinterleaved scales on the flattened [L, B*T] rows (prepared outside
@@ -523,7 +648,7 @@ def main() -> int:
     lib_ms = time_ms(lib_prefill4, 100)
     record("scatter_prefill4", got, want, 0, ms, plain_ms, lib_ms,
            2 * len(prim) * L * Lp * (KD + 8) + 5 * G8, 0.0, PEAK_INT8,
-           "neutts_tpu/ops/attention.py:1290", "neutts_tpu_torch/csrc/slot_copy.cu")
+           "neutts_tpu/ops/attention.py:1290", "neutts_tpu_torch/csrc/slot_copy.cu", dev_ms=dms)
     del got, want, work, new, psrc, ssrc, ck, cv, ks, vs, stag, bufs
     torch.cuda.empty_cache()
 
@@ -746,6 +871,7 @@ def main() -> int:
     for key, r in results.items():
         r["launches"] = sum(ph["launches"][key] for ph in paths)
     kernels = {"kernels": list(results.values())}
+    report["kernel_shapes"] = shapes
     report["total_s"] = time.perf_counter() - t_start
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

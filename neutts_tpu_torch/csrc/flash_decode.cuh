@@ -1,6 +1,6 @@
-// Flash-decode building blocks shared by decode_attention.cu (one cache
-// range) and staged_attention.cu (the settled cache range, then the staging
-// columns of the current serving segment).
+// Flash-decode building blocks of staged_attention.cu (the settled cache
+// range, then the staging columns of the current serving segment);
+// decode_attention.cu takes only the int4 unpack from here.
 //
 // One block per (batch row, KV head): the G query heads of that KV head
 // (GQA) score against one 64-token K/V tile staged in shared memory, and an

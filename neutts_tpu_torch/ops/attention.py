@@ -56,6 +56,13 @@ def _check_decode_geometry(name: str, G: int, D: int) -> None:
         raise ValueError(f"{name}: G={G}, D={D} exceed the kernel's shared memory")
 
 
+def _check_aligned(name: str, *tensors) -> None:
+    """16-byte vector loads need 16-byte aligned buffers."""
+    for t in tensors:
+        if t is not None and t.data_ptr() % 16:
+            raise ValueError(f"{name}: buffers must be 16-byte aligned")
+
+
 def is_int4(all_k, k_scale) -> bool:
     """An int4 cache: scale rows twice the byte axis (JAX attention.py:389)."""
     return k_scale is not None and k_scale.shape[-1] == 2 * all_k.shape[2]
@@ -107,6 +114,34 @@ def decode_attention_plain(q, all_k, all_v, layer: int, lens, pad, k_scale=None,
     return torch.einsum("bkgt,btkd->bkgd", p, cv).to(q.dtype)
 
 
+MAX_SPLIT = 32  # csrc/decode_attention.cu: splits of one (row, KV head)
+_split_ws: dict = {}
+
+
+def decode_splits(B: int, K: int, T: int, device) -> int:
+    """NSPLIT of the split-K decode kernel: enough blocks to fill the card's
+    SMs (about four per SM), from B * K alone, never more than one per
+    64-token tile of T nor MAX_SPLIT. It never reads `lens`, which would
+    wait on the device."""
+    n_sm = torch.cuda.get_device_properties(device).multi_processor_count
+    return max(1, min(-(-T // 64), MAX_SPLIT, 4 * n_sm // (B * K)))
+
+
+def _split_workspace(device, stream: int, B: int, K: int, G: int, D: int, nsplit: int):
+    """The f32 partials and the zeroed per-(row, KV head) counters of the
+    split-K merge, made once per (device, stream, B, K, G, D, NSPLIT): the
+    kernel leaves the counters at 0 after each launch, and launches on one
+    stream run in order."""
+    key = (device.index, stream, B, K, G, D, nsplit)
+    ws = _split_ws.get(key)
+    if ws is None:
+        ws = _split_ws[key] = (
+            torch.empty(B * K * nsplit * (G * D + 2 * G), dtype=torch.float32, device=device),
+            torch.zeros(B * K, dtype=torch.int32, device=device),
+        )
+    return ws
+
+
 def _decode_attention_cuda(q, all_k, all_v, layer, lens, pad, k_scale, v_scale):
     name = "decode_attention"
     B, K, G, D = q.shape
@@ -131,15 +166,21 @@ def _decode_attention_cuda(q, all_k, all_v, layer, lens, pad, k_scale, v_scale):
     elif all_k.dtype != q.dtype or k_scale is not None:
         raise TypeError(f"{name}: a float cache must match q's dtype and take no scales")
     _check_decode_geometry(name, G, D)
+    if D % 16:
+        raise ValueError(f"{name}: D={D} must be a multiple of 16 (16-byte cache loads)")
+    _check_aligned(name, all_k, all_v)
     out = torch.empty_like(q)
-    fn = _build.bind("decode_attention.cu", "neutts_decode_attention", 8, 8)
+    stream = _build.stream_of(q.device)
+    nsplit = decode_splits(B, K, T, q.device)
+    ws, counters = _split_workspace(q.device, stream, B, K, G, D, nsplit)
+    fn = _build.bind("decode_attention.cu", "neutts_decode_attention", 10, 9)
     with torch.cuda.device(q.device):
         rc = fn(
             q.data_ptr(), all_k.data_ptr(), all_v.data_ptr(),
             _build.ptr(k_scale), _build.ptr(v_scale), lens.data_ptr(), pad.data_ptr(),
-            out.data_ptr(), B, K, G, D, T, int(layer),
-            _build.DTYPE_CODE[q.dtype], _build.DT_I4 if int4 else _build.DTYPE_CODE[all_k.dtype],
-            _build.stream_of(q.device),
+            out.data_ptr(), _build.ptr(ws), _build.ptr(counters), B, K, G, D, T, int(layer),
+            nsplit, _build.DTYPE_CODE[q.dtype],
+            _build.DT_I4 if int4 else _build.DTYPE_CODE[all_k.dtype], stream,
         )
     _build.check(rc, name)
     mode = "int4" if int4 else "int8" if quant else "bf16"
@@ -148,6 +189,20 @@ def _decode_attention_cuda(q, all_k, all_v, layer, lens, pad, k_scale, v_scale):
 
 
 # --- prefill -----------------------------------------------------------------
+
+PREFILL_BF16_D = (16, 32, 64, 128)  # head widths of the bf16 tensor-core kernel
+
+
+def prefill_tile(G: int, D: int, dtype) -> dict:
+    """The block shape csrc/prefill_attention.cu launches for G query heads
+    per KV head, head width D and dtype (f32 or bf16): query positions and
+    heads per block, threads, dynamic shared bytes (needs the built kernel)."""
+    import ctypes
+
+    fn = _build.bind("prefill_attention.cu", "neutts_prefill_tile", 0, 3)  # (G, D, dtype, int*)
+    shape = (ctypes.c_int * 4)()
+    _build.check(fn(G, D, _build.DTYPE_CODE[dtype], ctypes.addressof(shape)), "prefill_tile")
+    return dict(zip(("query_positions", "heads", "threads", "smem_bytes"), shape))
 
 
 def prefill_attention(q, k, v, pads):
@@ -192,9 +247,16 @@ def _prefill_attention_cuda(q, k, v, pads):
     if q.dtype not in (torch.float32, torch.bfloat16) or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"{name}: q/k/v must share one float dtype")
     G = H // K
-    R = G * (16 if G <= 8 else 8)  # query rows per block, as the kernel picks
-    if 4 * (2 * R * D + 64 * (2 * D + 1) + 64 * R + 3 * R) > SMEM_LIMIT:
-        raise ValueError(f"{name}: G={G}, D={D} exceed the kernel's shared memory")
+    if q.dtype == torch.bfloat16:  # tensor cores; cp.async of k/v, bf16 pairs of q/out
+        if D not in PREFILL_BF16_D:
+            raise ValueError(f"{name}: bf16 takes D in {PREFILL_BF16_D}, got {D}")
+        _check_aligned(name, k, v)
+        if q.data_ptr() % 4:
+            raise ValueError(f"{name}: q must be 4-byte aligned")
+    else:
+        R = G * (16 if G <= 8 else 8)  # query rows per block, as the f32 kernel picks
+        if 4 * (2 * R * D + 64 * (2 * D + 1) + 64 * R + 3 * R) > SMEM_LIMIT:
+            raise ValueError(f"{name}: G={G}, D={D} exceed the kernel's shared memory")
     out = torch.empty_like(q)
     fn = _build.bind("prefill_attention.cu", "neutts_prefill_attention", 5, 6)
     with torch.cuda.device(q.device):
@@ -314,9 +376,7 @@ def _check_copy_buffers(name: str, KD: int, *tensors) -> None:
     16-byte aligned value buffers."""
     if KD % 16:
         raise ValueError(f"{name}: K*D={KD} must be a multiple of 16")
-    for t in tensors:
-        if t.data_ptr() % 16:
-            raise ValueError(f"{name}: buffers must be 16-byte aligned")
+    _check_aligned(name, *tensors)
 
 
 def _check_reconcile(name, all_k, all_v, k_scale, v_scale, stag_k, stag_v, stag_ks, stag_vs,

@@ -7,6 +7,8 @@ with the XLA oracles, on the same numpy inputs. Cases mirror
 tests/test_attention.py at reduced sizes.
 """
 
+import functools
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -114,6 +116,109 @@ def test_decode_ignores_tail():
     cv[:, 40:] = -1e6
     got = tattn.decode_attention(_t(q), _t(ck)[None], _t(cv)[None], 0, lens, pad)
     np.testing.assert_array_equal(got.numpy(), base.numpy())
+
+
+def _split_k_decode(q, ck, cv, lens, pad, nsplit, int4):
+    """What csrc/decode_attention.cu does, in torch (f32): [pad, lens) is cut
+    into `nsplit` chunks of a multiple of 64 tokens (int4: counted from pad
+    rounded down to even, a whole byte), each chunk gives an unnormalised
+    partial (acc, m, l) (an empty chunk: 0, -1e30, 0), and the partials are
+    merged in index order. q [B, K, G, D]; ck/cv [B, T, K*D] dequantized."""
+    B, K, G, D = q.shape
+    T = ck.shape[1]
+    k, v = ck.reshape(B, T, K, D).float(), cv.reshape(B, T, K, D).float()
+    out = torch.zeros(B, K, G, D)
+    for b in range(B):
+        lo, hi = int(pad[b]), min(int(lens[b]), T)
+        base = lo & ~1 if int4 else lo
+        n = max(hi - base, 0)
+        chunk = -(-(-(-n // nsplit)) // 64) * 64
+        accs, ms, ls = [], [], []
+        for s in range(nsplit):
+            cs = base + min(s * chunk, n)
+            clo, chi = max(cs, lo), min(cs + chunk, base + n)
+            if clo >= chi:
+                accs.append(torch.zeros(K, G, D))
+                ms.append(torch.full((K, G), -1e30))
+                ls.append(torch.zeros(K, G))
+                continue
+            sc = torch.einsum("kgd,tkd->kgt", q[b].float(), k[b, clo:chi]) * D**-0.5
+            m = sc.amax(-1)
+            p = torch.exp(sc - m[..., None])
+            accs.append(torch.einsum("kgt,tkd->kgd", p, v[b, clo:chi]))
+            ms.append(m)
+            ls.append(p.sum(-1))
+        mx = torch.stack(ms).amax(0)
+        o, total = torch.zeros(K, G, D), torch.zeros(K, G)
+        for acc, m, l in zip(accs, ms, ls):
+            w = torch.exp(m - mx)
+            o += w[..., None] * acc
+            total += w * l
+        out[b] = o / total.clamp_min(1e-30)[..., None]
+    return out
+
+
+# rows: odd pad and lens, shorter than one chunk, empty (lens == pad), full
+_SPLIT_LENS, _SPLIT_PAD = [301, 37, 77, 512], [3, 30, 77, 0]
+
+
+@functools.lru_cache(maxsize=None)
+def _split_case(mode):
+    """Inputs (torch, dequantized f32 [B, T, KD] of layer 1) and the Pallas
+    kernel's output (interpret mode) for one cache mode."""
+    B, K, G, T, D = 4, 2, 7, 512, 64
+    rng = np.random.default_rng(11)
+    q = rng.standard_normal((B, K, G, D)).astype(np.float32)
+    lens, pad = np.asarray(_SPLIT_LENS, np.int32), np.asarray(_SPLIT_PAD, np.int32)
+    jl, jp = jnp.asarray(lens), jnp.asarray(pad)
+    if mode == "int4":
+        kp, ks = _int4_cache(rng, 2, B, T, K * D)
+        vp, vs = _int4_cache(rng, 2, B, T, K * D)
+        ck, cv = tbb.dequant_kv4(_t(kp[1]), _t(ks[1])), tbb.dequant_kv4(_t(vp[1]), _t(vs[1]))
+        kern = jattn.decode_attention_stacked(
+            jnp.asarray(q), jnp.asarray(kp), jnp.asarray(vp), jnp.int32(1), jl, jp,
+            k_scale=jnp.asarray(ks), v_scale=jnp.asarray(vs), block_t=256, interpret=True)
+    elif mode == "int8":
+        kq, ks = jbb.quantize_kv(jnp.asarray(rng.standard_normal((2, B, T, K * D)), jnp.float32))
+        vq, vs = jbb.quantize_kv(jnp.asarray(rng.standard_normal((2, B, T, K * D)), jnp.float32))
+        ck = _t(np.asarray(kq[1], np.float32) * np.asarray(ks[1])[..., None])
+        cv = _t(np.asarray(vq[1], np.float32) * np.asarray(vs[1])[..., None])
+        kern = jattn.decode_attention_stacked(jnp.asarray(q), kq, vq, jnp.int32(1), jl, jp,
+                                              k_scale=ks, v_scale=vs, block_t=128,
+                                              interpret=True)
+    else:  # bf16 q and cache
+        jq = jnp.asarray(q, jnp.bfloat16)
+        jk, jv = (jnp.asarray(rng.standard_normal((2, B, T, K * D)), jnp.bfloat16)
+                  for _ in range(2))
+        q = np.asarray(jq, np.float32)
+        ck, cv = _t(np.asarray(jk[1], np.float32)), _t(np.asarray(jv[1], np.float32))
+        kern = jattn.decode_attention_stacked(jq, jk, jv, jnp.int32(1), jl, jp, block_t=128,
+                                              interpret=True)
+    oracle = jattn.decode_attention_xla(jnp.asarray(q), jnp.asarray(ck.numpy()),
+                                        jnp.asarray(cv.numpy()), jl, jp)
+    return _t(q), ck, cv, lens, pad, np.asarray(kern, np.float32), np.asarray(oracle)
+
+
+@pytest.mark.parametrize("nsplit", [1, 2, 3, 5, 8, 16])
+@pytest.mark.parametrize("mode", ["bf16", "int8", "int4"])
+def test_split_k_merge_matches_pallas_kernel(mode, nsplit):
+    """The split-K decode kernel's chunking and index-order merge, written
+    out in torch, against the XLA oracle on the same dequantized f32 cache
+    to 1e-5 (the same function, summed in another order), and against the
+    Pallas decode kernel (interpret): each value within 2e-2 of it (it
+    rounds probabilities to bf16), or no farther from it than the exact
+    oracle is (the int4 kernel's hi-only combine rounds P_o - 16 P_e to
+    bf16, which on the 7-token row moves single values by ~0.03). The empty
+    row has no defined output: the split kernel writes zeros, the JAX paths
+    a softmax over masked slots."""
+    q, ck, cv, lens, pad, kern, oracle = _split_case(mode)
+    got = _split_k_decode(q, ck, cv, lens, pad, nsplit, int4=mode == "int4").numpy()
+    live = lens > pad
+    np.testing.assert_allclose(got[live], oracle[live], rtol=1e-5, atol=1e-5)
+    gap = np.abs(got - kern)[live]
+    limit = np.maximum(2e-2 + 2e-2 * np.abs(kern[live]), np.abs(oracle - kern)[live] + 1e-5)
+    assert (gap <= limit).all(), float(gap.max())
+    assert not got[~live].any()
 
 
 def _prefill_inputs(S, pads, H=14, K=2, D=64, seed=0):

@@ -60,18 +60,102 @@ def test_decode_attention_kernel(dev, dtype, mode, G, D):
 
 @pytest.mark.parametrize("dtype,S,G,D", [
     (torch.float32, 128, 7, 64), (torch.bfloat16, 192, 7, 64), (torch.float32, 48, 2, 16),
+    # the main paths' buckets and a length off the 64-key tile, both modes
+    *((dt, S, G, D) for dt, G, D in ((torch.bfloat16, 7, 64), (torch.float32, 2, 16))
+      for S in (48, 320, 384, 512)),
+    # other GQA groups of the tensor-core kernel: two 16-row slices per head
+    # in a block (4), heads split over two blocks (12)
+    (torch.bfloat16, 200, 4, 64), (torch.bfloat16, 200, 12, 64),
 ])
 def test_prefill_attention_kernel(dev, dtype, S, G, D):
-    B, K = 4, 2
+    """Pads 0, 3, S/2, S - 1 (one live row) and S (an all-pad row: zeros)."""
+    B, K = 5, 2
     q = _randn(dev, B, S, K * G, D, dtype=dtype)
     k = _randn(dev, B, S, K, D, dtype=dtype, seed=1)
     v = _randn(dev, B, S, K, D, dtype=dtype, seed=2)
-    pads = torch.tensor([0, 3, S // 2, S - 1], dtype=torch.int32, device=dev)
+    pads = torch.tensor([0, 3, S // 2, S - 1, S], dtype=torch.int32, device=dev)
+    before = _build.launches["prefill_attention"]
     got = attn.prefill_attention(q, k, v, pads)
     torch.cuda.synchronize()
     want = attn.prefill_attention_plain(q, k, v, pads)
     tol = 1e-4 if dtype == torch.float32 else 2e-2
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    assert not got[4].any() and not got[3, : S - 1].any()
+    assert _build.launches["prefill_attention"] == before + 1
+
+
+def _decode_inputs(dev, mode, B, T, lens, pad, G=7, D=64, L=2, K=2):
+    """q [B, K, G, D] bf16 and a bf16, int8 or int4 cache of L layers."""
+    q = _randn(dev, B, K, G, D, dtype=torch.bfloat16)
+    ks = vs = None
+    if mode == "int4":
+        (ck, ks), (cv, vs) = _int4(dev, L, B, T, K * D, 1), _int4(dev, L, B, T, K * D, 2)
+    else:
+        ck = _randn(dev, L, B, T, K * D, dtype=torch.bfloat16, seed=1)
+        cv = _randn(dev, L, B, T, K * D, dtype=torch.bfloat16, seed=2)
+        if mode == "int8":
+            (ck, ks), (cv, vs) = bb.quantize_kv(ck), bb.quantize_kv(cv)
+    lens = torch.tensor(lens, dtype=torch.int32, device=dev)
+    pad = torch.tensor(pad, dtype=torch.int32, device=dev)
+    return q, ck, cv, 1, lens, pad, ks, vs
+
+
+@pytest.mark.parametrize("T,lens,pad", [
+    # an empty row (lens == pad: the kernel writes zeros where the plain
+    # softmax spreads over masked slots), a row shorter than one chunk, odd
+    # pads and lens (int4: half-byte masks at chunk edges), full rows
+    (1024, [700, 37, 129, 1023, 641, 1024], [700, 30, 65, 1, 63, 127]),
+    (2048, [1903], [5]),  # the bf16 `infer` shape: one long row, the most splits
+    (64, [64, 33, 7], [0, 3, 7]),  # one tile: NSPLIT 1, a block merges its own partial
+])
+@pytest.mark.parametrize("mode", ["bf16", "int8", "int4"])
+def test_decode_attention_split_ranges(dev, mode, T, lens, pad):
+    args = _decode_inputs(dev, mode, len(lens), T, lens, pad)
+    assert (attn.decode_splits(len(lens), 2, T, dev) == 1) == (T <= 64)
+    got = attn.decode_attention(*args)
+    torch.cuda.synchronize()
+    want = attn.decode_attention_plain(*args)
+    live = args[4] > args[5]  # lens > pad
+    assert not got[~live].any()
+    # each row within 1% of its largest |output|: a chunk dropped or merged
+    # with the wrong weight moves a row past it
+    got, want = got[live].float(), want[live].float()
+    row_tol = 1e-2 * want.abs().amax(dim=(1, 2, 3), keepdim=True)
+    assert bool(((got - want).abs() <= row_tol).all()), float((got - want).abs().max())
+
+
+@pytest.mark.parametrize("mode", ["bf16", "int8", "int4"])
+def test_decode_attention_is_deterministic(dev, mode):
+    """200 calls on the same inputs give bit-equal outputs: the merge runs in
+    a fixed order and every launch leaves its counters at 0."""
+    B, T = 8, 1024
+    args = _decode_inputs(dev, mode, B, T, [1000, 1024, 800, 961, 1024, 700, 1010, 901],
+                          [0, 5, 13, 64, 1, 100, 7, 31])
+    first = attn.decode_attention(*args)
+    outs = [attn.decode_attention(*args) for _ in range(200)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(o, first) for o in outs)
+
+
+def test_decode_attention_is_one_kernel(dev):
+    """One call is one CUDA kernel: no second launch for the merge, no
+    memset, and no host synchronisation."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    args = _decode_inputs(dev, "int8", 8, 1024, [1000] * 8, [3] * 8)
+    attn.decode_attention(*args)  # builds the kernel and the split workspace
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            attn.decode_attention(*args)
+            torch.cuda.set_sync_debug_mode("default")
+            torch.cuda.synchronize()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    on_device = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    assert len(on_device) == 1 and "decode_attention_kernel" in on_device[0], on_device
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
