@@ -17,7 +17,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      (#1) and prefill attention (#5) also the split count NSPLIT, the prefill
      tile, and the other main-path shapes of each (#1 bf16 at B 1, T 2048
      and at B 16 of the bf16 slot cache; #5 at the admission shape B 64,
-     S 512); then the whole backbone, and a
+     S 512); NSPLIT of staged decode (#2), the fused MLP's (#6) GEMM tiles
+     and the IMMA instructions (and no IDP4A) in the SASS of its GEMMs,
+     whose library yardstick, like the fused QKV's (#7), is the products
+     alone as torch._int_mm calls; then the whole backbone, and a
      small serving Engine, on the GPU against the CPU (plain versions) on a
      small f32 model, with f32, int8 and int4 caches;
   4. main path, W8A8: NeuTTS.initialize_random(AIR, CODEC, quantize="int8")
@@ -72,6 +75,24 @@ def bound(nbytes: float, ops: float, peak: float):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def sass_functions(lib) -> dict:
+    """Function name -> its SASS lines, from `cuobjdump -sass` of a library."""
+    from neutts_tpu_torch.ops import _build
+
+    cuobjdump = Path(_build.nvcc_path()).with_name("cuobjdump")
+    out = subprocess.run([str(cuobjdump), "-sass", str(lib)], check=True, capture_output=True,
+                         text=True).stdout
+    funcs: dict = {}
+    cur = None
+    for line in out.splitlines():
+        if "Function :" in line:
+            cur = line.split("Function :", 1)[1].strip()
+            funcs[cur] = []
+        elif cur is not None:
+            funcs[cur].append(line)
+    return funcs
 
 
 def main() -> int:
@@ -353,22 +374,61 @@ def main() -> int:
     ms = time_ms(lambda i: mlp_ops.fused_qkv(*qargs), 20)
     dms = device_ms(lambda i: mlp_ops.fused_qkv(*qargs), 20)
     plain_ms = time_ms(lambda i: mlp_ops.fused_qkv_plain(*qargs), 5)
-    record("fused_qkv", got, want, 2e-2 * float(want.float().abs().max()), ms, plain_ms, None,
+    # library: the product alone, one torch._int_mm on the same int8 operands
+    # (quantization, epilogue and the weight's K-major copy, the layout on
+    # which cuBLAS takes its TN tensor-core kernel, outside the timing)
+    xq8, xs8 = mlp_ops.quantize_act(mlp_ops._rms(x, nw, 1e-6))
+    wqkv_k = bb.k_major(wqkv["q"])
+    lib_ms = time_ms(lambda i: torch._int_mm(xq8, wqkv_k), 20)
+    record("fused_qkv", got, want, 2e-2 * float(want.float().abs().max()), ms, plain_ms, lib_ms,
            M * Dm * 2 + Dm * N + 2 * N * 4 + Dm * 2 + M * N * 2, 2.0 * M * Dm * N, PEAK_INT8,
            "neutts_tpu/ops/mlp.py:234", "neutts_tpu_torch/csrc/w8a8.cu", dev_ms=dms)
+    # the MLP's weights K-major, as backbone.quantize_params stores them
     wg, wu = (bb.quantize_weight(randn(Dm, Fm, dtype=torch.float32, scale=Dm**-0.5))
               for _ in range(2))
     wd = bb.quantize_weight(randn(Fm, Dm, dtype=torch.float32, scale=Fm**-0.5))
+    for w in (wg, wu, wd):
+        w["q"] = bb.k_major(w["q"])
     margs = (x, nw, wg["q"], wg["s"], wu["q"], wu["s"], wd["q"], wd["s"])
+    tile = mlp_ops.mlp_tile()
+    print(f"[3] fused_mlp int8 tensor-core tiles: gate/up {tile['gate_up_rows']} rows x "
+          f"{tile['gate_up_cols']} gate + {tile['gate_up_cols']} up columns, down "
+          f"{tile['down_rows']} rows x {tile['down_cols']} columns, {tile['k_bytes']}-byte k "
+          f"steps in {tile['stages']} stages, {tile['threads']} threads (mma.sync m16n8k32 s8)")
+    report["mlp_tile"] = tile
     got = mlp_ops.fused_mlp(*margs)
     want = mlp_ops.fused_mlp_plain(*margs)
     ms = time_ms(lambda i: mlp_ops.fused_mlp(*margs), 10)
     dms = device_ms(lambda i: mlp_ops.fused_mlp(*margs), 10)
     plain_ms = time_ms(lambda i: mlp_ops.fused_mlp_plain(*margs), 3)
-    record("fused_mlp", got, want, 3e-2 * float(want.float().abs().max()), ms, plain_ms, None,
+    # library: the three products alone as torch._int_mm on the same operands
+    # (the K-major weight views; quantizations and epilogues outside the timing)
+    ffq8 = mlp_ops.quantize_act(
+        torch.nn.functional.silu(mlp_ops.int8_matmul(xq8, wg["q"]).float() * xs8 * wg["s"])
+        * (mlp_ops.int8_matmul(xq8, wu["q"]).float() * xs8 * wu["s"]))[0]
+
+    def lib_mlp(i):
+        torch._int_mm(xq8, wg["q"])
+        torch._int_mm(xq8, wu["q"])
+        torch._int_mm(ffq8, wd["q"])
+
+    lib_ms = time_ms(lib_mlp, 20)
+    record("fused_mlp", got, want, 3e-2 * float(want.float().abs().max()), ms, plain_ms, lib_ms,
            2 * M * Dm * 2 + 3 * Dm * Fm + (2 * Fm + Dm) * 4 + Dm * 2, 6.0 * M * Dm * Fm,
            PEAK_INT8, "neutts_tpu/ops/mlp.py:103", "neutts_tpu_torch/csrc/w8a8.cu", dev_ms=dms)
-    del x, wqkv, wg, wu, wd, got, want
+    del x, wqkv, wqkv_k, wg, wu, wd, got, want, xq8, xs8, ffq8
+
+    # the MLP's GEMMs run on the int8 tensor cores: IMMA, and no IDP4A, in
+    # the SASS of each of their entry functions
+    sass = sass_functions(_build._lib_path("w8a8.cu"))
+    gemms = {f: t for f, t in sass.items() if "imma_gemm_kernel" in f}
+    require(len(gemms) == 3, f"expected 3 tensor-core GEMM functions in w8a8, got {list(gemms)}")
+    for f, t in gemms.items():
+        n_imma = sum(" IMMA" in ln for ln in t)
+        require(n_imma > 0 and not any("IDP4A" in ln for ln in t),
+                f"{f}: {n_imma} IMMA, IDP4A present: {any('IDP4A' in ln for ln in t)}")
+        print(f"[3] sass {f[:60]}: {n_imma} IMMA, no IDP4A")
+    report["mlp_sass_imma"] = {f: sum(" IMMA" in ln for ln in t) for f, t in gemms.items()}
     torch.cuda.empty_cache()
 
     # serving kernels at the W8A8 serving shapes: 128 slots of T = 2304, S = 32
@@ -424,6 +484,8 @@ def main() -> int:
     lib_ms = time_ms(lambda i: torch.nn.functional.scaled_dot_product_attention(
         lq, lk, lv, attn_mask=smask), 100)
     n_att = live + Bs * (step + 1)
+    print(f"[3] decode_attention_staged B {Bs} T {Ts}: NSPLIT "
+          f"{attn.decode_splits(Bs, K, Ts, dev)} settled chunks + 1 staging partial")
     record("decode_attention_staged", got, want, row_tolerance(want), ms, plain_ms, lib_ms,
            2 * Bs * H * D * 2 + n_att * (2 * KD + 8) + 8 * Bs, 4.0 * H * D * n_att, PEAK_BF16,
            "neutts_tpu/ops/attention.py:548", "neutts_tpu_torch/csrc/staged_attention.cu",
@@ -575,6 +637,8 @@ def main() -> int:
     lib_ms = time_ms(lambda i: torch.nn.functional.scaled_dot_product_attention(
         lq, lk, lv, attn_mask=smask), 100)
     n_stag = Bs * (step + 1)
+    print(f"[3] decode_attention_staged_int4 B {Bs} T {Ts4}: NSPLIT "
+          f"{attn.decode_splits(Bs, K, Ts4, dev)} settled chunks + 1 staging partial")
     record("decode_attention_staged_int4", got, want, row_tolerance(want), ms, plain_ms, lib_ms,
            2 * Bs * H * D * 2 + live * (KD + 8) + n_stag * (2 * KD + 8) + 8 * Bs,
            4.0 * H * D * (live + n_stag), PEAK_BF16, "neutts_tpu/ops/attention.py:548",

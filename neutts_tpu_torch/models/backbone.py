@@ -29,11 +29,13 @@ import torch
 import torch.nn.functional as F
 
 from neutts_tpu_torch.config import BackboneConfig, round_up
+from neutts_tpu_torch.models.checkpoint import tree_to
 from neutts_tpu_torch.ops import attention as attn_ops
 from neutts_tpu_torch.ops import mlp as mlp_ops
 
 Params = Dict[str, object]
 _PROJ = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
+_MLP_PROJ = ("w_gate", "w_up", "w_down")  # the fused MLP kernel's weights: K-major
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
@@ -93,10 +95,42 @@ def quantize_weight(w: torch.Tensor) -> Dict[str, torch.Tensor]:
     return {"q": q, "s": s}
 
 
+def k_major(q: torch.Tensor) -> torch.Tensor:
+    """An int8 weight [..., K, N] as a view of [..., N, K] storage (K
+    contiguous): the operand layout of the int8 tensor cores in the fused
+    MLP kernel (`mma` takes B column-major). No copy if it is already so.
+    `torch._int_mm` takes the view as its transposed operand."""
+    return q if q.mT.is_contiguous() else q.mT.contiguous().mT
+
+
+def mlp_k_major(params: Params) -> Params:
+    """`params` with the quantized MLP weights (gate, up, down) stored
+    K-major; float weights, and weights already K-major, as they are.
+    Quantized trees from elsewhere (a checkpoint, the JAX package's arrays)
+    hold them [K, N] row-major. The K-major copy replaces the row-major one."""
+    layers = params["layers"]
+    if not isinstance(layers["w_gate"], dict) or all(
+            layers[n]["q"].mT.is_contiguous() for n in _MLP_PROJ):
+        return params
+    layers = dict(layers)
+    for name in _MLP_PROJ:
+        layers[name] = {**layers[name], "q": k_major(layers[name]["q"])}
+    return {**params, "layers": layers}
+
+
+def prepare_params(params: Params, device) -> Params:
+    """A parameter tree as the entry points (`NeuTTS`, `Engine`) run it:
+    every tensor on `device`, quantized MLP weights K-major (`mlp_k_major`),
+    whether the tree came from `quantize_params`, a checkpoint or the JAX
+    package's arrays."""
+    return mlp_k_major(tree_to(params, device))
+
+
 def quantize_params(params: Params) -> Params:
     """int8 W8A8 weights: the seven projections and the LM head become
-    {"q", "s"} dicts; "wqkv" adds the fused [wq | wk | wv] copy with an f32
-    fused bias for the prefill `fused_qkv` kernel. The embedding stays."""
+    {"q", "s"} dicts, the MLP's K-major (`k_major`); "wqkv" adds the fused
+    [wq | wk | wv] copy with an f32 fused bias for the prefill `fused_qkv`
+    kernel. The embedding stays."""
     layers = dict(params["layers"])
     for name in _PROJ:
         layers[name] = quantize_weight(layers[name])
@@ -109,7 +143,7 @@ def quantize_params(params: Params) -> Params:
     out["layers"] = layers
     head = params["lm_head"] if "lm_head" in params else params["embed"].T
     out["lm_head"] = quantize_weight(head)
-    return out
+    return mlp_k_major(out)
 
 
 def quantized_weights(params: Params) -> bool:

@@ -114,7 +114,7 @@ def decode_attention_plain(q, all_k, all_v, layer: int, lens, pad, k_scale=None,
     return torch.einsum("bkgt,btkd->bkgd", p, cv).to(q.dtype)
 
 
-MAX_SPLIT = 32  # csrc/decode_attention.cu: splits of one (row, KV head)
+MAX_SPLIT = 32  # csrc/flash_decode.cuh: chunks of one (row, KV head)'s range
 _split_ws: dict = {}
 
 
@@ -127,16 +127,18 @@ def decode_splits(B: int, K: int, T: int, device) -> int:
     return max(1, min(-(-T // 64), MAX_SPLIT, 4 * n_sm // (B * K)))
 
 
-def _split_workspace(device, stream: int, B: int, K: int, G: int, D: int, nsplit: int):
+def _split_workspace(device, stream: int, B: int, K: int, G: int, D: int, nparts: int):
     """The f32 partials and the zeroed per-(row, KV head) counters of the
-    split-K merge, made once per (device, stream, B, K, G, D, NSPLIT): the
-    kernel leaves the counters at 0 after each launch, and launches on one
-    stream run in order."""
-    key = (device.index, stream, B, K, G, D, nsplit)
+    split-K merge (csrc/flash_decode.cuh), made once per (device, stream, B,
+    K, G, D, partials per row and head): decode attention (#1, NSPLIT
+    partials) and staged decode (#2, NSPLIT + 1) share it at equal keys.
+    That is safe because each launch leaves the counters at 0 and launches
+    on one stream run in order."""
+    key = (device.index, stream, B, K, G, D, nparts)
     ws = _split_ws.get(key)
     if ws is None:
         ws = _split_ws[key] = (
-            torch.empty(B * K * nsplit * (G * D + 2 * G), dtype=torch.float32, device=device),
+            torch.empty(B * K * nparts * (G * D + 2 * G), dtype=torch.float32, device=device),
             torch.zeros(B * K, dtype=torch.int32, device=device),
         )
     return ws
@@ -353,15 +355,21 @@ def _decode_attention_staged_cuda(q, all_k, all_v, k_scale, v_scale, stag_k, sta
     if q.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"{name}: q must be f32 or bf16, got {q.dtype}")
     _check_decode_geometry(name, G, D)
+    if D % 16:
+        raise ValueError(f"{name}: D={D} must be a multiple of 16 (16-byte cache loads)")
+    _check_aligned(name, all_k, all_v, stag_k, stag_v)
     out = torch.empty_like(q)
-    fn = _build.bind("staged_attention.cu", "neutts_decode_attention_staged", 12, 11)
+    stream = _build.stream_of(q.device)
+    nsplit = decode_splits(B, K, T, q.device)  # + one partial for the staging columns
+    ws, counters = _split_workspace(q.device, stream, B, K, G, D, nsplit + 1)
+    fn = _build.bind("staged_attention.cu", "neutts_decode_attention_staged", 14, 12)
     with torch.cuda.device(q.device):
         rc = fn(
             q.data_ptr(), all_k.data_ptr(), all_v.data_ptr(), k_scale.data_ptr(),
             v_scale.data_ptr(), stag_k.data_ptr(), stag_v.data_ptr(), stag_ks.data_ptr(),
-            stag_vs.data_ptr(), base.data_ptr(), pad.data_ptr(), out.data_ptr(),
-            B, K, G, D, T, S, SEG_PAD, int(layer), int(step), _build.DTYPE_CODE[q.dtype],
-            int(int4), _build.stream_of(q.device),
+            stag_vs.data_ptr(), base.data_ptr(), pad.data_ptr(), out.data_ptr(), ws.data_ptr(),
+            counters.data_ptr(), B, K, G, D, T, S, SEG_PAD, int(layer), int(step), nsplit,
+            _build.DTYPE_CODE[q.dtype], int(int4), stream,
         )
     _build.check(rc, name)
     _build.launches[name + ("_int4" if int4 else "")] += 1

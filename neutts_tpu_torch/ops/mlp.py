@@ -115,7 +115,10 @@ def fused_mlp(x, norm_w, wg_q, wg_s, wu_q, wu_s, wd_q, wd_s, *, eps: float = 1e-
     """x + down(silu(gate(h)) * up(h)), h = rms_norm(x), with W8A8 dots.
 
     x [M, D] f32/bf16; wg/wu [D, F] and wd [F, D] int8 with f32
-    per-output-channel scales. Returns [M, D] in x's dtype."""
+    per-output-channel scales. Returns [M, D] in x's dtype. The CUDA kernel
+    takes the weights K-major (`backbone.k_major`: the [K, N] weight as a
+    view of [N, K] storage), the operand layout of its int8 tensor cores;
+    the plain version takes either layout."""
     if x.device.type == "cpu":
         return fused_mlp_plain(x, norm_w, wg_q, wg_s, wu_q, wu_s, wd_q, wd_s, eps=eps)
     if x.device.type != "cuda":
@@ -132,31 +135,52 @@ def fused_mlp_plain(x, norm_w, wg_q, wg_s, wu_q, wu_s, wd_q, wd_s, *, eps: float
     return x + d.to(x.dtype)
 
 
+def mlp_tile() -> dict:
+    """The GEMM tiles of csrc/w8a8.cu's MLP kernels (needs the built
+    library): token rows and gate/up columns per gate/up block, token rows
+    and columns per down block, k bytes per stage, stages, threads."""
+    import ctypes
+
+    fn = _build.bind("w8a8.cu", "neutts_fused_mlp_tile", 0, 0)  # (int*)
+    shape = (ctypes.c_int * 7)()
+    _build.check(fn(ctypes.addressof(shape)), "mlp_tile")
+    keys = ("gate_up_rows", "gate_up_cols", "down_rows", "down_cols", "k_bytes", "stages",
+            "threads")
+    return dict(zip(keys, shape))
+
+
 def _fused_mlp_cuda(x, norm_w, wg_q, wg_s, wu_q, wu_s, wd_q, wd_s, eps):
     name = "fused_mlp"
     M, D = x.shape
     Fd = wg_q.shape[1]
     nw = norm_w.float().contiguous()
-    _build.check_inputs(name, x, nw, wg_q, wg_s, wu_q, wu_s, wd_q, wd_s)
-    _check_w8a8(name, x, wg_q.shape[0], [(wg_q, wg_s, Fd), (wu_q, wu_s, Fd), (wd_q, wd_s, D)])
     if wu_q.shape != (D, Fd) or wd_q.shape != (Fd, D):
         raise ValueError(f"{name}: gate {tuple(wg_q.shape)}, up {tuple(wu_q.shape)}, "
                          f"down {tuple(wd_q.shape)}")
+    for w in (wg_q, wu_q, wd_q):
+        if not w.mT.is_contiguous():
+            raise ValueError(f"{name}: weights must be K-major ([N, K] storage, "
+                             f"backbone.k_major), got strides {w.stride()}")
+        if w.data_ptr() % 16:
+            raise ValueError(f"{name}: weights must be 16-byte aligned")
+    # the K-major weights are contiguous as their transposes
+    _build.check_inputs(name, x, nw, wg_q.mT, wg_s, wu_q.mT, wu_s, wd_q.mT, wd_s)
+    _check_w8a8(name, x, wg_q.shape[0], [(wg_q, wg_s, Fd), (wu_q, wu_s, Fd), (wd_q, wd_s, D)])
+    if D % 16 or Fd % 16:
+        raise ValueError(f"{name}: D={D} and F={Fd} must be multiples of 16")
     dev = x.device
     xq = torch.empty(M, D, dtype=torch.int8, device=dev)
     xs = torch.empty(M, dtype=torch.float32, device=dev)
     ff = torch.empty(M, Fd, dtype=torch.float32, device=dev)
-    amax = torch.zeros(M, dtype=torch.int32, device=dev)  # f32 bits, atomicMax'd
-    ffq = torch.empty(M, Fd, dtype=torch.int8, device=dev)
-    ffs = torch.empty(M, dtype=torch.float32, device=dev)
+    amax = torch.empty(M, dtype=torch.int32, device=dev)  # f32 bits: zeroed, then atomicMax'd
     out = torch.empty_like(x)
-    fn = _build.bind("w8a8.cu", "neutts_fused_mlp", 15, 4, 1)
+    fn = _build.bind("w8a8.cu", "neutts_fused_mlp", 13, 4, 1)
     with torch.cuda.device(dev):
         rc = fn(
             x.data_ptr(), nw.data_ptr(), wg_q.data_ptr(), wg_s.data_ptr(), wu_q.data_ptr(),
             wu_s.data_ptr(), wd_q.data_ptr(), wd_s.data_ptr(), xq.data_ptr(), xs.data_ptr(),
-            ff.data_ptr(), amax.data_ptr(), ffq.data_ptr(), ffs.data_ptr(), out.data_ptr(),
-            M, D, Fd, _build.DTYPE_CODE[x.dtype], float(eps), _build.stream_of(dev),
+            ff.data_ptr(), amax.data_ptr(), out.data_ptr(), M, D, Fd,
+            _build.DTYPE_CODE[x.dtype], float(eps), _build.stream_of(dev),
         )
     _build.check(rc, name)
     _build.launches[name] += 1

@@ -64,7 +64,7 @@ class NeuTTS:
         self.device = resolve_device(device)
         if quantize not in (None, "int8"):
             raise ValueError(f"unknown quantize mode {quantize!r} (expected None or 'int8')")
-        backbone_params = ckpt.tree_to(backbone_params, self.device)
+        backbone_params = bb.prepare_params(backbone_params, self.device)
         if quantize == "int8" and not bb.quantized_weights(backbone_params):
             backbone_params = bb.quantize_params(backbone_params)
         self.backbone_cfg = backbone_cfg

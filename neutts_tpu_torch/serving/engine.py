@@ -32,7 +32,6 @@ import torch
 
 from neutts_tpu_torch.config import BackboneConfig, SamplingConfig, resolve_kv_dtype, round_up
 from neutts_tpu_torch.models import backbone as bb
-from neutts_tpu_torch.models.checkpoint import tree_to
 from neutts_tpu_torch.ops.attention import SEG_PAD
 from neutts_tpu_torch.pipeline import resolve_device
 from neutts_tpu_torch.runtime import batching
@@ -102,7 +101,7 @@ class Engine:
         self.eos_id = eos_id
         self.n_slots = n_slots
         self.sampling = sampling or SamplingConfig()
-        params = tree_to(params, self.device)
+        params = bb.prepare_params(params, self.device)
         # speech-constrained sampling gets the pre-sliced speech head: the
         # LM-head product and the top-k shrink to the speech vocabulary
         lay = cfg.layout

@@ -118,6 +118,45 @@ def test_decode_ignores_tail():
     np.testing.assert_array_equal(got.numpy(), base.numpy())
 
 
+def _partial(qb, k, v):
+    """One chunk's unnormalised partial (acc [K, G, D], m [K, G], l [K, G])
+    of the query heads qb [K, G, D] over k/v [t, K, D]; an empty chunk gives
+    (0, -1e30, 0)."""
+    K, G, D = qb.shape
+    if k.shape[0] == 0:
+        return torch.zeros(K, G, D), torch.full((K, G), -1e30), torch.zeros(K, G)
+    sc = torch.einsum("kgd,tkd->kgt", qb.float(), k) * D**-0.5
+    m = sc.amax(-1)
+    p = torch.exp(sc - m[..., None])
+    return torch.einsum("kgt,tkd->kgd", p, v), m, p.sum(-1)
+
+
+def _chunk_partials(qb, k, v, lo, hi, nsplit, int4):
+    """The partials of the `nsplit` chunks of [lo, hi) (csrc/flash_decode.cuh
+    chunk_of): chunks of a multiple of 64 tokens counted from lo (int4: lo
+    rounded down to even, a whole byte)."""
+    base = lo & ~1 if int4 else lo
+    n = max(hi - base, 0)
+    chunk = -(-(-(-n // nsplit)) // 64) * 64
+    parts = []
+    for s in range(nsplit):
+        cs = base + min(s * chunk, n)
+        clo, chi = max(cs, lo), min(cs + chunk, base + n)
+        parts.append(_partial(qb, k[clo:max(clo, chi)], v[clo:max(clo, chi)]))
+    return parts
+
+
+def _merge(parts):
+    """The merge of partials in index order (the last block's, in the kernel)."""
+    mx = torch.stack([m for _, m, _ in parts]).amax(0)
+    o, total = torch.zeros_like(parts[0][0]), torch.zeros_like(parts[0][2])
+    for acc, m, l in parts:
+        w = torch.exp(m - mx)
+        o += w[..., None] * acc
+        total += w * l
+    return o / total.clamp_min(1e-30)[..., None]
+
+
 def _split_k_decode(q, ck, cv, lens, pad, nsplit, int4):
     """What csrc/decode_attention.cu does, in torch (f32): [pad, lens) is cut
     into `nsplit` chunks of a multiple of 64 tokens (int4: counted from pad
@@ -130,31 +169,25 @@ def _split_k_decode(q, ck, cv, lens, pad, nsplit, int4):
     out = torch.zeros(B, K, G, D)
     for b in range(B):
         lo, hi = int(pad[b]), min(int(lens[b]), T)
-        base = lo & ~1 if int4 else lo
-        n = max(hi - base, 0)
-        chunk = -(-(-(-n // nsplit)) // 64) * 64
-        accs, ms, ls = [], [], []
-        for s in range(nsplit):
-            cs = base + min(s * chunk, n)
-            clo, chi = max(cs, lo), min(cs + chunk, base + n)
-            if clo >= chi:
-                accs.append(torch.zeros(K, G, D))
-                ms.append(torch.full((K, G), -1e30))
-                ls.append(torch.zeros(K, G))
-                continue
-            sc = torch.einsum("kgd,tkd->kgt", q[b].float(), k[b, clo:chi]) * D**-0.5
-            m = sc.amax(-1)
-            p = torch.exp(sc - m[..., None])
-            accs.append(torch.einsum("kgt,tkd->kgd", p, v[b, clo:chi]))
-            ms.append(m)
-            ls.append(p.sum(-1))
-        mx = torch.stack(ms).amax(0)
-        o, total = torch.zeros(K, G, D), torch.zeros(K, G)
-        for acc, m, l in zip(accs, ms, ls):
-            w = torch.exp(m - mx)
-            o += w[..., None] * acc
-            total += w * l
-        out[b] = o / total.clamp_min(1e-30)[..., None]
+        out[b] = _merge(_chunk_partials(q[b], k[b], v[b], lo, hi, nsplit, int4))
+    return out
+
+
+def _staged_split_decode(q, ck, cv, sk, sv, base, pad, step, nsplit, int4):
+    """What csrc/staged_attention.cu does, in torch (f32): the `nsplit`
+    chunks of the settled range [pad, min(base, T)), then one partial over
+    the staging columns [0, step], merged in index order. ck/cv [B, T, K*D]
+    and sk/sv [B, S, K*D] dequantized."""
+    B, K, G, D = q.shape
+    T, S = ck.shape[1], sk.shape[1]
+    k, v = ck.reshape(B, T, K, D).float(), cv.reshape(B, T, K, D).float()
+    stk, stv = sk.reshape(B, S, K, D).float(), sv.reshape(B, S, K, D).float()
+    out = torch.zeros(B, K, G, D)
+    for b in range(B):
+        lo, hi = int(pad[b]), min(int(base[b]), T)
+        parts = _chunk_partials(q[b], k[b], v[b], lo, hi, nsplit, int4)
+        parts.append(_partial(q[b], stk[b, : step + 1], stv[b, : step + 1]))
+        out[b] = _merge(parts)
     return out
 
 
@@ -442,6 +475,64 @@ def test_staged_int4_matches_oracle_and_kernel(layer, step):
                                          jnp.asarray(base), jnp.asarray(pad), interpret=True,
                                          row_block=4)
     np.testing.assert_allclose(got.numpy(), np.asarray(kern), rtol=0.05, atol=0.02)
+
+
+# settled ranges: a row with base == 0 (staging alone), a row shorter than one
+# chunk, rows crossing several 64-token tiles; int4 with odd pads
+_STAGED_SPLIT_ROWS = {
+    "int8": ([0, 64, 200, 256], [0, 3, 17, 0]),
+    "int4": ([0, 64, 272, 640], [0, 3, 5, 1]),
+}
+
+
+@functools.lru_cache(maxsize=None)
+def _staged_split_case(mode, step):
+    """Inputs (torch; layer 1 of the cache and of the staging dequantized to
+    f32), the XLA oracle's and the Pallas kernel's (interpret) outputs."""
+    x = _staged_inputs() if mode == "int8" else _staged4_inputs()
+    base, pad = (np.asarray(a, np.int32) for a in _STAGED_SPLIT_ROWS[mode])
+    names = ("q", "all_k", "all_v", "k_scale", "v_scale", "stag_k", "stag_v", "stag_ks",
+             "stag_vs")
+    jargs = [jnp.asarray(x[n]) for n in names]
+    oracle = jattn.decode_attention_staged_xla(*jargs, 1, step, jnp.asarray(base),
+                                               jnp.asarray(pad))
+    kern = jattn.decode_attention_staged(*jargs, jnp.int32(1), jnp.int32(step),
+                                         jnp.asarray(base), jnp.asarray(pad), interpret=True,
+                                         row_block=4)
+    t = {n: _t(x[n]) for n in names}
+    S = t["stag_k"].shape[2]
+    if mode == "int4":
+        ck = tbb.dequant_kv4(t["all_k"][1], t["k_scale"][1])
+        cv = tbb.dequant_kv4(t["all_v"][1], t["v_scale"][1])
+    else:
+        ck = t["all_k"][1].float() * t["k_scale"][1][..., None]
+        cv = t["all_v"][1].float() * t["v_scale"][1][..., None]
+    sk = t["stag_k"][1].float() * t["stag_ks"][1][:, :S, None]
+    sv = t["stag_v"][1].float() * t["stag_vs"][1][:, :S, None]
+    return (t["q"], ck, cv, sk, sv, base, pad, np.asarray(oracle),
+            np.asarray(kern, np.float32))
+
+
+@pytest.mark.parametrize("nsplit", [1, 2, 3, 4])
+@pytest.mark.parametrize("last_step", [False, True])
+@pytest.mark.parametrize("mode", ["int8", "int4"])
+def test_staged_split_k_matches_pallas_kernel(mode, last_step, nsplit):
+    """The staged kernel's split-K algebra (csrc/staged_attention.cu), written
+    out in torch: the settled chunks, one more partial over the staging
+    columns [0, step], the index-order merge. Against the XLA oracle on the
+    same dequantized inputs to 1e-5 (the same function, summed in another
+    order), and against the Pallas staged kernel (interpret) by the rule of
+    test_split_k_merge_matches_pallas_kernel: within 2e-2 of it (it rounds
+    probabilities to bf16), or no farther from it than the oracle is. Step 0
+    and S - 1; the base == 0 row attends its staging columns alone."""
+    step = 15 if last_step else 0
+    q, ck, cv, sk, sv, base, pad, oracle, kern = _staged_split_case(mode, step)
+    got = _staged_split_decode(q, ck, cv, sk, sv, base, pad, step, nsplit,
+                               int4=mode == "int4").numpy()
+    np.testing.assert_allclose(got, oracle, rtol=1e-5, atol=1e-5)
+    limit = np.maximum(2e-2 + 2e-2 * np.abs(kern), np.abs(oracle - kern) + 1e-5)
+    gap = np.abs(got - kern)
+    assert (gap <= limit).all(), float(gap.max())
 
 
 def test_reconcile4_matches_pallas_kernel_exactly():

@@ -18,11 +18,13 @@ import torch
 
 from neutts_tpu import config as jcfg
 from neutts_tpu.models import backbone as jbb
+from neutts_tpu.ops import mlp as jmlp
 from neutts_tpu.ops import sampling as jsmp
 from neutts_tpu.runtime import decode as jdec
 from neutts_tpu_torch import config
 from neutts_tpu_torch.models import backbone as tbb
 from neutts_tpu_torch.models.checkpoint import params_from_numpy
+from neutts_tpu_torch.ops import mlp as tmlp
 from neutts_tpu_torch.ops import sampling as tsmp
 from neutts_tpu_torch.runtime import decode as tdec
 
@@ -34,6 +36,11 @@ EOS = CFG.layout.speech_gen_end
 @pytest.fixture(scope="module")
 def jparams():
     return jbb.init_params(JCFG, jax.random.PRNGKey(0), dtype=jnp.float32)
+
+
+@pytest.fixture(scope="module")
+def jquant(jparams):
+    return jbb.quantize_params(jparams)
 
 
 def _to_torch(jtree):
@@ -98,6 +105,49 @@ def test_quantize_params_tree_matches(jparams):
     np.testing.assert_array_equal(tq["layers"]["wqkv"]["q"].numpy(), jq["layers"]["wqkv"]["q"])
     np.testing.assert_array_equal(tq["lm_head"]["q"].numpy(), jq["lm_head"]["q"])
     np.testing.assert_allclose(tq["layers"]["wqkv"]["b"].numpy(), jq["layers"]["wqkv"]["b"])
+
+
+@pytest.mark.parametrize("name", ["wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down"])
+def test_quantized_weight_layout(jparams, jquant, name):
+    """quantize_params stores the MLP's int8 weights K-major (the fused MLP
+    kernel's tensor-core operand layout): the [K, N] weight is a view of
+    [N, K] storage equal to the JAX package's q transposed. The other
+    projections stay row-major. prepare_params, which the entry points run
+    on every tree, gives a JAX-quantized tree handed over through
+    params_from_numpy the same layout and values; mlp_k_major leaves a
+    K-major tree as it is."""
+    mlp = name in ("w_gate", "w_up", "w_down")
+    want = np.asarray(jquant["layers"][name]["q"])
+    loaded = tbb.prepare_params(_to_torch(jquant), "cpu")
+    for tree in (tbb.quantize_params(_to_torch(jparams)), loaded):
+        got = tree["layers"][name]["q"]
+        assert got.mT.is_contiguous() == mlp and got.is_contiguous() != mlp
+        np.testing.assert_array_equal(got.mT.contiguous().numpy(), np.swapaxes(want, -1, -2))
+    assert tbb.mlp_k_major(loaded) is loaded
+
+
+def test_k_major_mlp_matches_jax(jquant):
+    """fused_mlp_plain and _mm on the K-major MLP weights of layer 1 of the
+    TINY tree give what the JAX package's fused_mlp_xla and _mm give on the
+    same weights: fused_mlp within one quantization step (2e-2 of the
+    output's range, as tests/test_torch_mlp.py), _mm to f32 rounding (the
+    same int8 activations, an exact int32 product)."""
+    tl = tbb.layer_params(tbb.mlp_k_major(_to_torch(jquant)), 1)
+    jl = jax.tree_util.tree_map(lambda a: a[1], jquant["layers"])
+    names = ("w_gate", "w_up", "w_down")
+    assert all(tl[n]["q"].mT.is_contiguous() for n in names)
+    rng = np.random.default_rng(8)
+    x = (rng.normal(size=(64, CFG.hidden_size)) * 0.5).astype(np.float32)
+    got = tmlp.fused_mlp_plain(torch.from_numpy(x), tl["mlp_norm"],
+                               *(tl[n][k] for n in names for k in ("q", "s")))
+    want = np.asarray(jmlp.fused_mlp_xla(jnp.asarray(x), jl["mlp_norm"],
+                                         *(jl[n][k] for n in names for k in ("q", "s"))))
+    assert np.max(np.abs(got.numpy() - want)) <= 2e-2 * np.max(np.abs(want))
+    for n in names:
+        h = rng.normal(size=(5, tl[n]["q"].shape[0])).astype(np.float32)
+        np.testing.assert_allclose(tbb._mm(torch.from_numpy(h), tl[n]).numpy(),
+                                   np.asarray(jbb._mm(jnp.asarray(h), jl[n])),
+                                   rtol=1e-6, atol=1e-6)
 
 
 @pytest.mark.parametrize("kv_dtype,quant", [

@@ -168,12 +168,72 @@ def test_fused_w8a8_kernels(dev, dtype):
     got = mlp_ops.fused_qkv(x, nw, w["q"], w["s"], b)
     want = mlp_ops.fused_qkv_plain(x, nw, w["q"], w["s"], b)
     assert float((got.float() - want.float()).abs().max()) <= 2e-2 * float(want.abs().max())
-    wg, wu = (bb.quantize_weight(_randn(dev, D, F, seed=s, scale=D**-0.5)) for s in (4, 5))
-    wd = bb.quantize_weight(_randn(dev, F, D, seed=6, scale=F**-0.5))
-    args = (x, nw, wg["q"], wg["s"], wu["q"], wu["s"], wd["q"], wd["s"])
+    args = (x, nw, *_mlp_weights(dev, D, F))
     got = mlp_ops.fused_mlp(*args)
     want = mlp_ops.fused_mlp_plain(*args)
     assert float((got.float() - want.float()).abs().max()) <= 3e-2 * float(want.abs().max())
+
+
+def _mlp_weights(dev, D, F):
+    """Quantized gate, up (K-major [D, F]) and down (K-major [F, D]) weights
+    with their scales, as backbone.quantize_params stores them."""
+    ws = [bb.quantize_weight(_randn(dev, D, F, seed=s, scale=D**-0.5)) for s in (4, 5)]
+    ws.append(bb.quantize_weight(_randn(dev, F, D, seed=6, scale=F**-0.5)))
+    return [t for w in ws for t in (bb.k_major(w["q"]), w["s"])]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D,F", [(64, 128), (512, 2816), (896, 4864)])  # TINY, Nano, Air
+@pytest.mark.parametrize("M", [200, 2112, 4096])
+def test_fused_mlp_tensor_core_kernel(dev, M, D, F, dtype):
+    """The int8 tensor-core MLP at the three model widths, token counts off
+    and on the 128- and 64-row tiles (admission groups are rows x 512, with
+    any number of rows), against the plain version within one quantization
+    step through the ff quantization: 3e-2 of the output's range."""
+    x = _randn(dev, M, D, dtype=dtype, scale=0.5)
+    nw = 1.0 + 0.1 * _randn(dev, D, seed=1)
+    args = (x, nw, *_mlp_weights(dev, D, F))
+    before = _build.launches["fused_mlp"]
+    got = mlp_ops.fused_mlp(*args)
+    torch.cuda.synchronize()
+    assert _build.launches["fused_mlp"] == before + 1
+    want = mlp_ops.fused_mlp_plain(*args)
+    assert got.dtype == dtype and torch.isfinite(got.float()).all()
+    assert float((got.float() - want.float()).abs().max()) <= 3e-2 * float(want.abs().max())
+
+
+def test_fused_mlp_raises_on_row_major_weights(dev):
+    """The kernel takes K-major weights only; a row-major one raises (no
+    fallback to the plain version)."""
+    x = _randn(dev, 64, 128, scale=0.5)
+    args = list(_mlp_weights(dev, 128, 256))
+    args[0] = args[0].contiguous()  # gate [D, F] row-major
+    with pytest.raises(ValueError):
+        mlp_ops.fused_mlp(x, torch.ones(128, device=dev), *args)
+
+
+def test_int_mm_takes_k_major_weight_without_copy(dev):
+    """`torch._int_mm` accepts the K-major view of a weight (decode's `_mm`
+    with the MLP weights), exactly and with no copy of the weight: one
+    kernel on the device, no copy kernel."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    g = torch.Generator(device=dev).manual_seed(9)
+    a = torch.randint(-127, 128, (32, 896), generator=g, device=dev, dtype=torch.int8)
+    w = bb.k_major(torch.randint(-127, 128, (896, 4864), generator=g, device=dev,
+                                 dtype=torch.int8))
+    assert w.mT.is_contiguous()
+    want = (a.double() @ w.double()).to(torch.int32)
+    torch.testing.assert_close(torch._int_mm(a, w), want, rtol=0, atol=0)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch._int_mm(a, w)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()]
+    assert not any(n in ("aten::copy_", "aten::clone", "aten::contiguous") for n in names), names
+    on_device = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    assert len(on_device) == 1, on_device
 
 
 def test_wrappers_raise_on_bad_inputs(dev):
@@ -230,6 +290,122 @@ def test_staged_attention_kernel(dev, dtype, G, D, step):
     tol = 1e-4 if dtype == torch.float32 else 2e-2
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
     assert _build.launches["decode_attention_staged"] == before + 1
+
+
+def _staged_inputs(dev, mode, B, base, pad, L=2, K=2, G=7, D=64, S=32, seed=10):
+    """q, an int8 [L, B, T, K*D] or packed int4 cache at the serving slot
+    lengths (T 2304 / 2560) and int8 staging, unit-normal values."""
+    T = 2304 if mode == "int8" else 2560
+    q = _randn(dev, B, K, G, D, dtype=torch.bfloat16, seed=seed)
+    if mode == "int4":
+        (ck, ks), (cv, vs) = _int4(dev, L, B, T, K * D, 1), _int4(dev, L, B, T, K * D, 2)
+        sq = [bb.quantize_kv4(_randn(dev, L, B, S, K * D, seed=s)) for s in (3, 4)]
+    else:
+        (ck, ks), (cv, vs) = (bb.quantize_kv(_randn(dev, L, B, T, K * D, seed=s)) for s in (1, 2))
+        sq = [bb.quantize_kv(_randn(dev, L, B, S, K * D, seed=s)) for s in (3, 4)]
+    stag = (sq[0][0], sq[1][0], torch.nn.functional.pad(sq[0][1], (0, attn.SEG_PAD - S)),
+            torch.nn.functional.pad(sq[1][1], (0, attn.SEG_PAD - S)))
+    base = torch.tensor(base, dtype=torch.int32, device=dev)
+    pad = torch.tensor(pad, dtype=torch.int32, device=dev)
+    return q, ck, cv, ks, vs, *stag, base, pad
+
+
+def _staged_rows(B, seed=0):
+    """Settled lengths of B serving rows (even; rows 1, 9, 17, ... empty:
+    base == 0) and pads (odd ones among them)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    base = rng.integers(1, 1025, B) * 2
+    base[1::8] = 0
+    pad = np.minimum(base, rng.integers(0, 200, B))
+    return base.tolist(), pad.tolist()
+
+
+@pytest.mark.parametrize("step", [0, 17, 31])
+@pytest.mark.parametrize("B", [1, 16, 128])
+@pytest.mark.parametrize("mode", ["int8", "int4"])
+def test_staged_attention_split_ranges(dev, mode, B, step):
+    """The split-K staged kernel at the serving geometry (G 7, D 64, T of the
+    slot cache, S 32): NSPLIT + 1 partials from B * K, rows with base == 0
+    (staging alone), odd pads. Each row within 1% of its largest |output|."""
+    base, pad = _staged_rows(B)
+    x = _staged_inputs(dev, mode, B, base, pad)
+    args = (*x[:9], 1, step, *x[9:])
+    key = "decode_attention_staged" + ("_int4" if mode == "int4" else "")
+    before = _build.launches[key]
+    got = attn.decode_attention_staged(*args)
+    torch.cuda.synchronize()
+    assert _build.launches[key] == before + 1
+    want = attn.decode_attention_staged_plain(*args).float()
+    got = got.float()
+    assert torch.isfinite(got).all()
+    row_tol = 1e-2 * want.abs().amax(dim=(1, 2, 3), keepdim=True)
+    assert bool(((got - want).abs() <= row_tol).all()), float((got - want).abs().max())
+
+
+@pytest.mark.parametrize("mode", ["int8", "int4"])
+def test_staged_attention_is_deterministic(dev, mode):
+    """200 calls at the serving shape (B 128) give bit-equal outputs."""
+    base, pad = _staged_rows(128)
+    x = _staged_inputs(dev, mode, 128, base, pad)
+    args = (*x[:9], 1, 17, *x[9:])
+    first = attn.decode_attention_staged(*args)
+    outs = [attn.decode_attention_staged(*args) for _ in range(200)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(o, first) for o in outs)
+
+
+@pytest.mark.parametrize("mode", ["int8", "int4"])
+def test_staged_attention_is_one_kernel(dev, mode):
+    """One staged call is one CUDA kernel (the staging chunk and the merge
+    in the same launch, no memset) and makes no host synchronisation."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    base, pad = _staged_rows(128)
+    x = _staged_inputs(dev, mode, 128, base, pad)
+    args = (*x[:9], 1, 17, *x[9:])
+    attn.decode_attention_staged(*args)  # builds the kernel and the split workspace
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            attn.decode_attention_staged(*args)
+            torch.cuda.set_sync_debug_mode("default")
+            torch.cuda.synchronize()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    on_device = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    assert len(on_device) == 1 and "staged_attention_kernel" in on_device[0], on_device
+
+
+def test_decode_and_staged_share_a_workspace(dev):
+    """Kernels #1 and #2 at one workspace key (B 4, K 2, G 7, D 64 and three
+    partials: #1 NSPLIT 3 over T 192, #2 NSPLIT 2 + staging over T 128),
+    called in turns: every output right and bit-equal to its first, so
+    each launch leaves the shared counters at 0 for the next."""
+    B, K = 4, 2
+    assert attn.decode_splits(B, K, 192, dev) == 3 and attn.decode_splits(B, K, 128, dev) == 2
+    d_args = _decode_inputs(dev, "int8", B, 192, [192, 100, 7, 150], [0, 3, 0, 64])
+    base, pad = [128, 0, 64, 100], [0, 0, 3, 33]
+    x = _staged_inputs(dev, "int8", B, base, pad)
+    # the staged inputs at T 128: the first 128 slots of the slot cache
+    s_args = (x[0], x[1][:, :, :128].contiguous(), x[2][:, :, :128].contiguous(),
+              x[3][:, :, :128].contiguous(), x[4][:, :, :128].contiguous(), *x[5:9], 1, 9,
+              *x[9:])
+    n_ws = len(attn._split_ws)
+    firsts = attn.decode_attention(*d_args), attn.decode_attention_staged(*s_args)
+    assert len(attn._split_ws) <= n_ws + 1  # one key for both
+    for _ in range(50):
+        got = attn.decode_attention(*d_args), attn.decode_attention_staged(*s_args)
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], firsts[0]) and torch.equal(got[1], firsts[1])
+    for got, want in ((firsts[0], attn.decode_attention_plain(*d_args)),
+                      (firsts[1], attn.decode_attention_staged_plain(*s_args))):
+        got, want = got.float(), want.float()
+        row_tol = 1e-2 * want.abs().amax(dim=(1, 2, 3), keepdim=True)
+        assert bool(((got - want).abs() <= row_tol).all()), float((got - want).abs().max())
 
 
 def test_reconcile_kernel_exact(dev):
