@@ -17,12 +17,14 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      (#1) and prefill attention (#5) also the split count NSPLIT, the prefill
      tile, and the other main-path shapes of each (#1 bf16 at B 1, T 2048
      and at B 16 of the bf16 slot cache; #5 at the admission shape B 64,
-     S 512); NSPLIT of staged decode (#2), the fused MLP's (#6) GEMM tiles
-     and the IMMA instructions (and no IDP4A) in the SASS of its GEMMs,
-     whose library yardstick, like the fused QKV's (#7), is the products
-     alone as torch._int_mm calls; then the whole backbone, and a
-     small serving Engine, on the GPU against the CPU (plain versions) on a
-     small f32 model, with f32, int8 and int4 caches;
+     S 512); NSPLIT of staged decode (#2); the fused QKV (#7) also at the
+     admission shape M 32768, the GEMM tiles of #7 and of the fused MLP
+     (#6), IMMA in the SASS of each of their GEMMs and no IDP4A anywhere in
+     their library, their library yardstick the products alone as
+     torch._int_mm calls; the launch geometry of the reconcile (#3); then
+     the whole backbone, and a small serving Engine, on the GPU against the
+     CPU (plain versions) on a small f32 model, with f32, int8 and int4
+     caches;
   4. main path, W8A8: NeuTTS.initialize_random(AIR, CODEC, quantize="int8")
      with an int8 KV cache, infer_batch over 8 prompts (seeded random
      weights, sampling constrained to speech tokens);
@@ -362,40 +364,55 @@ def main() -> int:
                   np.random.default_rng(4).integers(0, 133, 64).tolist(), shapes)
     torch.cuda.empty_cache()
 
-    # W8A8 projections at M = 4096 prompt tokens (B = 8 x a 512 bucket)
+    # W8A8 projections at M = 4096 prompt tokens (B = 8 x a 512 bucket); the
+    # fused QKV (#7) also at the admission shape M = 32768 (64 rows x 512).
+    # Weights K-major, as backbone.quantize_params stores them.
     M, Dm, Fm, N = 4096, cfg.hidden_size, cfg.intermediate_size, cfg.q_dim + 2 * cfg.kv_dim
-    x = randn(M, Dm, scale=0.5)
     nw = (1.0 + 0.1 * randn(Dm, dtype=torch.float32)).to(torch.bfloat16)
     wqkv = bb.quantize_weight(randn(Dm, N, dtype=torch.float32, scale=Dm**-0.5))
+    wqkv["q"] = bb.k_major(wqkv["q"])
     bias = randn(N, dtype=torch.float32, scale=0.05)
-    qargs = (x, nw, wqkv["q"], wqkv["s"], bias)
-    got = mlp_ops.fused_qkv(*qargs)
-    want = mlp_ops.fused_qkv_plain(*qargs)
-    ms = time_ms(lambda i: mlp_ops.fused_qkv(*qargs), 20)
-    dms = device_ms(lambda i: mlp_ops.fused_qkv(*qargs), 20)
-    plain_ms = time_ms(lambda i: mlp_ops.fused_qkv_plain(*qargs), 5)
-    # library: the product alone, one torch._int_mm on the same int8 operands
-    # (quantization, epilogue and the weight's K-major copy, the layout on
-    # which cuBLAS takes its TN tensor-core kernel, outside the timing)
-    xq8, xs8 = mlp_ops.quantize_act(mlp_ops._rms(x, nw, 1e-6))
-    wqkv_k = bb.k_major(wqkv["q"])
-    lib_ms = time_ms(lambda i: torch._int_mm(xq8, wqkv_k), 20)
-    record("fused_qkv", got, want, 2e-2 * float(want.float().abs().max()), ms, plain_ms, lib_ms,
-           M * Dm * 2 + Dm * N + 2 * N * 4 + Dm * 2 + M * N * 2, 2.0 * M * Dm * N, PEAK_INT8,
-           "neutts_tpu/ops/mlp.py:234", "neutts_tpu_torch/csrc/w8a8.cu", dev_ms=dms)
-    # the MLP's weights K-major, as backbone.quantize_params stores them
+    tiles = mlp_ops.w8a8_tiles()
+    print(f"[3] w8a8 int8 tensor-core tiles (mma.sync m16n8k32 s8, {tiles['k_bytes']}-byte k "
+          f"steps, {tiles['threads']} threads): fused_qkv {tiles['qkv_cols']} columns x "
+          f"{tiles['qkv_rows']} rows, {tiles['qkv_stages']} k steps in flight, below M "
+          f"{tiles['qkv_wide_m']}, else {tiles['qkv_wide_rows']} rows, "
+          f"{tiles['qkv_wide_stages']} steps; gate/up {tiles['gate_up_rows']} rows x "
+          f"{tiles['gate_up_cols']} gate + {tiles['gate_up_cols']} up columns; down "
+          f"{tiles['down_rows']} rows x {tiles['down_cols']} columns; the MLP's "
+          f"{tiles['mlp_stages']} k steps in flight")
+    report["w8a8_tiles"] = tiles
+
+    def qkv_shape(key, Mx, iters):
+        """Kernel #7 on bf16 x [Mx, D]; returns x. Library: the product alone,
+        one torch._int_mm on the same int8 operands (the K-major weight, the
+        layout on which cuBLAS takes its TN tensor-core kernel; quantization
+        and epilogue outside the timing)."""
+        xx = randn(Mx, Dm, scale=0.5)
+        qargs = (xx, nw, wqkv["q"], wqkv["s"], bias)
+        got = mlp_ops.fused_qkv(*qargs)
+        want = mlp_ops.fused_qkv_plain(*qargs)
+        ms = time_ms(lambda i: mlp_ops.fused_qkv(*qargs), iters)
+        dms = device_ms(lambda i: mlp_ops.fused_qkv(*qargs), iters)
+        plain_ms = time_ms(lambda i: mlp_ops.fused_qkv_plain(*qargs), 3)
+        xq8 = mlp_ops.quantize_act(mlp_ops._rms(xx, nw, 1e-6))[0]
+        lib_ms = time_ms(lambda i: torch._int_mm(xq8, wqkv["q"]), iters)
+        record(key, got, want, 2e-2 * float(want.float().abs().max()), ms, plain_ms, lib_ms,
+               Mx * Dm * 2 + Dm * N + 2 * N * 4 + Dm * 2 + Mx * N * 2, 2.0 * Mx * Dm * N,
+               PEAK_INT8, "neutts_tpu/ops/mlp.py:234", "neutts_tpu_torch/csrc/w8a8.cu",
+               dev_ms=dms)
+        results[key]["M"] = Mx
+        return xx
+
+    x = qkv_shape("fused_qkv", M, 20)
+    qkv_shape("fused_qkv@M32768", 64 * 512, 10)
+    torch.cuda.empty_cache()
     wg, wu = (bb.quantize_weight(randn(Dm, Fm, dtype=torch.float32, scale=Dm**-0.5))
               for _ in range(2))
     wd = bb.quantize_weight(randn(Fm, Dm, dtype=torch.float32, scale=Fm**-0.5))
     for w in (wg, wu, wd):
         w["q"] = bb.k_major(w["q"])
     margs = (x, nw, wg["q"], wg["s"], wu["q"], wu["s"], wd["q"], wd["s"])
-    tile = mlp_ops.mlp_tile()
-    print(f"[3] fused_mlp int8 tensor-core tiles: gate/up {tile['gate_up_rows']} rows x "
-          f"{tile['gate_up_cols']} gate + {tile['gate_up_cols']} up columns, down "
-          f"{tile['down_rows']} rows x {tile['down_cols']} columns, {tile['k_bytes']}-byte k "
-          f"steps in {tile['stages']} stages, {tile['threads']} threads (mma.sync m16n8k32 s8)")
-    report["mlp_tile"] = tile
     got = mlp_ops.fused_mlp(*margs)
     want = mlp_ops.fused_mlp_plain(*margs)
     ms = time_ms(lambda i: mlp_ops.fused_mlp(*margs), 10)
@@ -403,6 +420,7 @@ def main() -> int:
     plain_ms = time_ms(lambda i: mlp_ops.fused_mlp_plain(*margs), 3)
     # library: the three products alone as torch._int_mm on the same operands
     # (the K-major weight views; quantizations and epilogues outside the timing)
+    xq8, xs8 = mlp_ops.quantize_act(mlp_ops._rms(x, nw, 1e-6))
     ffq8 = mlp_ops.quantize_act(
         torch.nn.functional.silu(mlp_ops.int8_matmul(xq8, wg["q"]).float() * xs8 * wg["s"])
         * (mlp_ops.int8_matmul(xq8, wu["q"]).float() * xs8 * wu["s"]))[0]
@@ -416,19 +434,24 @@ def main() -> int:
     record("fused_mlp", got, want, 3e-2 * float(want.float().abs().max()), ms, plain_ms, lib_ms,
            2 * M * Dm * 2 + 3 * Dm * Fm + (2 * Fm + Dm) * 4 + Dm * 2, 6.0 * M * Dm * Fm,
            PEAK_INT8, "neutts_tpu/ops/mlp.py:103", "neutts_tpu_torch/csrc/w8a8.cu", dev_ms=dms)
-    del x, wqkv, wqkv_k, wg, wu, wd, got, want, xq8, xs8, ffq8
+    del x, wqkv, wg, wu, wd, got, want, xq8, xs8, ffq8
 
-    # the MLP's GEMMs run on the int8 tensor cores: IMMA, and no IDP4A, in
-    # the SASS of each of their entry functions
+    # every GEMM of the w8a8 library runs on the int8 tensor cores: IMMA in
+    # each GEMM entry function (the QKV's two tiles in f32 and bf16, and the
+    # MLP's), and no IDP4A in any function of the library
     sass = sass_functions(_build._lib_path("w8a8.cu"))
+    dp4a = [f for f, t in sass.items() if any("IDP4A" in ln for ln in t)]
+    require(not dp4a, f"IDP4A in the w8a8 library: {dp4a}")
     gemms = {f: t for f, t in sass.items() if "imma_gemm_kernel" in f}
-    require(len(gemms) == 3, f"expected 3 tensor-core GEMM functions in w8a8, got {list(gemms)}")
+    n_qkv = sum("EpiQKV" in f for f in gemms)
+    require(len(gemms) == 7 and n_qkv == 4, f"expected 7 tensor-core GEMM functions in w8a8 "
+            f"(4 of the QKV: two tiles, f32 and bf16), got {list(gemms)}")
     for f, t in gemms.items():
         n_imma = sum(" IMMA" in ln for ln in t)
-        require(n_imma > 0 and not any("IDP4A" in ln for ln in t),
-                f"{f}: {n_imma} IMMA, IDP4A present: {any('IDP4A' in ln for ln in t)}")
-        print(f"[3] sass {f[:60]}: {n_imma} IMMA, no IDP4A")
-    report["mlp_sass_imma"] = {f: sum(" IMMA" in ln for ln in t) for f, t in gemms.items()}
+        require(n_imma > 0, f"{f}: no IMMA")
+        print(f"[3] sass {f[:60]}: {n_imma} IMMA")
+    print(f"[3] sass: no IDP4A in any of the {len(sass)} functions of w8a8")
+    report["w8a8_sass_imma"] = {f: sum(" IMMA" in ln for ln in t) for f, t in gemms.items()}
     torch.cuda.empty_cache()
 
     # serving kernels at the W8A8 serving shapes: 128 slots of T = 2304, S = 32
@@ -493,6 +516,15 @@ def main() -> int:
     del lk, lv, got, want
 
     # segment reconcile: about half the rows active, 8-aligned bases
+    def reconcile_launch(key, int4):
+        geo = attn.reconcile_geometry(L, Bs, S, KD, int4)
+        print(f"[3] {key} launch: grid {geo['grid']} (rows x groups of "
+              f"{geo['layers_per_block']} layers), {geo['value_threads']} value threads with "
+              f"{geo['vectors_in_flight']} 16-byte vectors of K and of V each in flight + "
+              f"{geo['scale_threads']} scale threads per block")
+        report.setdefault("reconcile_geometry", {})[key] = geo
+
+    reconcile_launch("reconcile_segment", False)
     bufs = (ck, cv, ks, vs)
     rbase_np = rng.integers(0, (Ts - S) // 8 + 1, Bs) * 8
     rbase = torch.tensor(rbase_np, dtype=torch.int32, device=dev)
@@ -646,6 +678,7 @@ def main() -> int:
     del lk, lv, got, want
 
     # int4 segment reconcile: bases multiples of 16, about half the rows active
+    reconcile_launch("reconcile_segment4", True)
     bufs = (ck, cv, ks, vs)
     rbase_np = rng.integers(0, (Ts4 - S) // 16 + 1, Bs) * 16
     rbase = torch.tensor(rbase_np, dtype=torch.int32, device=dev)
@@ -933,7 +966,8 @@ def main() -> int:
     # --- report ------------------------------------------------------------------------
     paths = (w8, d16, s8, s16, w4, s4)
     for key, r in results.items():
-        r["launches"] = sum(ph["launches"][key] for ph in paths)
+        # a shape row (name@shape) counts its kernel's launches at every shape
+        r["launches"] = sum(ph["launches"][key.split("@")[0]] for ph in paths)
     kernels = {"kernels": list(results.values())}
     report["kernel_shapes"] = shapes
     report["total_s"] = time.perf_counter() - t_start

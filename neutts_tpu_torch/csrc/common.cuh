@@ -35,27 +35,3 @@ __device__ __forceinline__ float warp_sum(float v) {
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
 }
-
-// Block-wide reductions for blockDim.x a multiple of 32 (<= 1024). `scratch`
-// holds 32 floats of shared memory; every thread gets the result.
-__device__ __forceinline__ float block_sum(float v, float* scratch) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int n_warps = blockDim.x >> 5;
-  v = warp_sum(v);
-  __syncthreads();
-  if (lane == 0) scratch[warp] = v;
-  __syncthreads();
-  v = lane < n_warps ? scratch[lane] : 0.f;
-  return warp_sum(v);
-}
-
-__device__ __forceinline__ float block_max(float v, float* scratch) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int n_warps = blockDim.x >> 5;
-  v = warp_max(v);
-  __syncthreads();
-  if (lane == 0) scratch[warp] = v;
-  __syncthreads();
-  v = lane < n_warps ? scratch[lane] : -3.402823466e38f;
-  return warp_max(v);
-}

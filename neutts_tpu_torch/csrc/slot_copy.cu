@@ -34,10 +34,17 @@
 //     token-order prompt scales to their deinterleaved columns.
 //
 // What bounds them on the H100: bytes, nothing else (a copy; int4 moves
-// half the value bytes of int8 and the same scale bytes). The grid is
-// (row, layer), so a 64-row admission of 24 layers runs 1,536 blocks; each
-// block moves its token range with 16-byte vector loads and stores (the
-// wrapper checks KD % 16 == 0 and 16-byte aligned buffers).
+// half the value bytes of int8 and the same scale bytes). Both move values
+// with 16-byte vector loads and stores (the wrapper checks KD % 16 == 0 and
+// 16-byte aligned buffers). The admission write's grid is (row, layer): a
+// 64-row admission of 24 layers runs 1,536 blocks, each a 64 KB token
+// range. A segment's reconcile is short (S 32 rows of 128 bytes a layer):
+// its blocks take several layers of a row each and issue every load
+// before a store (see reconcile_kernel). Neither reads `active`, `base` or
+// `primary` on the host: a serving segment is queued without a
+// synchronisation.
+#include <algorithm>
+
 #include "common.cuh"
 
 namespace {
@@ -92,68 +99,132 @@ __device__ __forceinline__ uint4 pack4(uint4 lo, uint4 hi) {
   return out;
 }
 
-// Pack staging rows (2j, 2j+1), j in [0, n), of one (row, layer) into byte
-// row c0 + j, skipped unless 0 <= c0 + j < R.
-__device__ __forceinline__ void pack_rows(
-    const int8_t* __restrict__ src_k, const int8_t* __restrict__ src_v,
-    int8_t* __restrict__ dst_k, int8_t* __restrict__ dst_v, int n, int c0, int R, int KD) {
-  const int vpt = KD / 16;
-  const uint4* sk = reinterpret_cast<const uint4*>(src_k);
-  const uint4* sv = reinterpret_cast<const uint4*>(src_v);
-  uint4* dk = reinterpret_cast<uint4*>(dst_k);
-  uint4* dv = reinterpret_cast<uint4*>(dst_v);
-  for (int i = threadIdx.x; i < n * vpt; i += THREADS) {
-    const int j = i / vpt, w = i - j * vpt, c = c0 + j;
-    if (c < 0 || c >= R) continue;
-    const size_t o = (size_t)c * vpt + w, s0 = (size_t)2 * j * vpt + w;
-    dk[o] = pack4(sk[s0], sk[s0 + vpt]);
-    dv[o] = pack4(sv[s0], sv[s0 + vpt]);
-  }
-}
+// --- segment reconcile ---------------------------------------------------------
+//
+// Grid (B, ceil(L / lpb)): block (b, g) moves layers [g*lpb, +lpb) of
+// cache row b. An inactive row's blocks read active[b] and exit; that read
+// (with base[b]) is the only one before the block's loads. Warps 0-7 move
+// the values: each thread issues all of its 16-byte loads (RC_UNROLL
+// vectors of K and of V; int4: both staging rows of each packed pair)
+// before its first store, and lpb is the layer count that fills that round
+// (reconcile_lpb). Warp 8 moves the block's scales, RC_SCALES per lane and
+// buffer loaded before they are stored. At the Air serving shape (L 24,
+// S 32, KD 128) an active block moves 4 layers x 8 KB (int8; int4 8 layers
+// of 4 KB of packed pairs) in one round of 8 loads a thread (int4: 16 of
+// half the bytes), and an inactive row costs 6 (int4 3) blocks that read
+// two words.
+//
+// Measured on an H100 (tools/probe_reconcile.py, against the one block per
+// (row, layer) of 256 threads that it replaced, at the Air serving shape):
+// no faster where it counts. The replaced kernel already moved the data
+// near the card's rate; this one launches 4-8x fewer blocks, so with no
+// row active it takes ~0.0025 ms against ~0.0038 (warm L2), but with half
+// the rows active it is 4-5% faster after a 256 MB memset (L2 full of
+// dirty lines: every line brought in or written first writes one back,
+// about twice the call's own bytes), as fast in int8 and ~7% slower in
+// int4 after a 256 MB read (clean L2), and 7-11% slower with warm L2. Of
+// the variants measured, a grid of 2 blocks an SM striding over the
+// (layer, active row) pairs a warp each was slower still.
 
-__global__ void __launch_bounds__(THREADS) reconcile_kernel(
+constexpr int RC_UNROLL = 4;                      // value vectors per thread and buffer
+constexpr int RC_VALUE_THREADS = THREADS;         // warps 0-7: values
+constexpr int RC_THREADS = RC_VALUE_THREADS + 32; // warp 8: scales
+constexpr int RC_SCALES = 4;                      // scales per lane and buffer in flight
+
+// INT4: the staging holds unpacked values, packed here in pairs (2j, 2j+1)
+// into byte row base/2 + j; T counts tokens (T/2 byte rows per cache row).
+template <bool INT4>
+__global__ void __launch_bounds__(RC_THREADS) reconcile_kernel(
     const int8_t* __restrict__ stag_k,  // [L, B, S, KD]
     const int8_t* __restrict__ stag_v,
     const float* __restrict__ stag_ks,  // [L, B, seg_pad]
     const float* __restrict__ stag_vs,
-    const int* __restrict__ base,       // [B]
+    const int* __restrict__ base,       // [B] (INT4: even in active rows)
     const bool* __restrict__ active,    // [B]
-    int8_t* __restrict__ all_k,         // [L, B, T, KD]
+    int8_t* __restrict__ all_k,         // [L, B, T, KD]; INT4 [L, B, T/2, KD]
     int8_t* __restrict__ all_v,
-    float* __restrict__ k_scale,        // [L, B, T]
+    float* __restrict__ k_scale,        // [L, B, T]; INT4 deinterleaved
     float* __restrict__ v_scale,
-    int B, int T, int S, int KD, int seg_pad) {
-  const int b = blockIdx.x, l = blockIdx.y;
-  if (!active[b]) return;
-  const size_t lb = (size_t)l * B + b;
-  copy_rows(stag_k + lb * S * KD, stag_v + lb * S * KD, all_k + lb * T * KD, all_v + lb * T * KD,
-            S, base[b], T, KD);
-  copy_scales<false>(stag_ks + lb * seg_pad, stag_vs + lb * seg_pad, k_scale + lb * T,
-                     v_scale + lb * T, S, base[b], T);
-}
-
-// T counts tokens: the packed cache rows hold T/2 byte rows.
-__global__ void __launch_bounds__(THREADS) reconcile4_kernel(
-    const int8_t* __restrict__ stag_k,  // [L, B, S, KD] unpacked int4 values
-    const int8_t* __restrict__ stag_v,
-    const float* __restrict__ stag_ks,  // [L, B, seg_pad]
-    const float* __restrict__ stag_vs,
-    const int* __restrict__ base,       // [B] even
-    const bool* __restrict__ active,    // [B]
-    int8_t* __restrict__ all_k,         // [L, B, T/2, KD] packed pairs
-    int8_t* __restrict__ all_v,
-    float* __restrict__ k_scale,        // [L, B, T] deinterleaved
-    float* __restrict__ v_scale,
-    int B, int T, int S, int KD, int seg_pad) {
-  const int b = blockIdx.x, l = blockIdx.y;
-  if (!active[b]) return;
+    int L, int B, int T, int S, int KD, int seg_pad, int lpb) {
+  const int b = blockIdx.x;
+  const bool act = active[b];
   const int b0 = base[b];
-  if (b0 & 1) __trap();
-  const size_t lb = (size_t)l * B + b;
-  pack_rows(stag_k + lb * S * KD, stag_v + lb * S * KD, all_k + lb * (T / 2) * KD,
-            all_v + lb * (T / 2) * KD, S / 2, b0 >> 1, T / 2, KD);
-  copy_scales<true>(stag_ks + lb * seg_pad, stag_vs + lb * seg_pad, k_scale + lb * T,
-                    v_scale + lb * T, S, b0, T);
+  if (!act) return;
+  if (INT4 && (b0 & 1)) __trap();
+  const int l0 = blockIdx.y * lpb, nl = min(lpb, L - l0);
+  const int tid = threadIdx.x;
+
+  if (tid >= RC_VALUE_THREADS) {  // warp 8: the scales of tokens [0, S) of nl layers
+    const int lane = tid - RC_VALUE_THREADS, n = nl * S;
+    for (int i0 = lane; i0 < n; i0 += 32 * RC_SCALES) {
+      float ks[RC_SCALES], vs[RC_SCALES];
+#pragma unroll
+      for (int u = 0; u < RC_SCALES; ++u) {
+        const int i = i0 + 32 * u;
+        if (i < n) {
+          const size_t src = ((size_t)(l0 + i / S) * B + b) * seg_pad + i % S;
+          ks[u] = stag_ks[src];
+          vs[u] = stag_vs[src];
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < RC_SCALES; ++u) {
+        const int i = i0 + 32 * u;
+        const int t = b0 + i % S;
+        const int c = INT4 ? (t >> 1) + (t & 1) * (T >> 1) : t;
+        if (i < n && c >= 0 && c < T) {
+          const size_t dst = ((size_t)(l0 + i / S) * B + b) * T + c;
+          k_scale[dst] = ks[u];
+          v_scale[dst] = vs[u];
+        }
+      }
+    }
+    return;
+  }
+
+  // warps 0-7: value vectors; destination row r of a layer takes staging
+  // row r (int8) or rows 2r, 2r+1 (int4)
+  constexpr int P = INT4 ? 2 : 1;         // staging rows per destination row
+  const int vpr = KD / 16;                // uint4 per row
+  const int rows = S / P;                 // destination rows per layer
+  const int R = T / P;                    // destination rows per cache row
+  const int c0 = b0 / P;                  // the segment's first destination row
+  const int per_layer = rows * vpr, n = nl * per_layer;
+  const uint4* sk = reinterpret_cast<const uint4*>(stag_k);
+  const uint4* sv = reinterpret_cast<const uint4*>(stag_v);
+  uint4* dk = reinterpret_cast<uint4*>(all_k);
+  uint4* dv = reinterpret_cast<uint4*>(all_v);
+  for (int i0 = tid; i0 < n; i0 += RC_VALUE_THREADS * RC_UNROLL) {
+    uint4 k[RC_UNROLL][P], v[RC_UNROLL][P];
+#pragma unroll
+    for (int u = 0; u < RC_UNROLL; ++u) {
+      const int i = i0 + RC_VALUE_THREADS * u;
+      if (i < n) {
+        const int l = l0 + i / per_layer, e = i % per_layer, r = e / vpr;
+        const size_t src = (((size_t)l * B + b) * S + P * r) * vpr + e % vpr;
+#pragma unroll
+        for (int p = 0; p < P; ++p) {
+          k[u][p] = sk[src + p * vpr];
+          v[u][p] = sv[src + p * vpr];
+        }
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < RC_UNROLL; ++u) {
+      const int i = i0 + RC_VALUE_THREADS * u;
+      const int l = l0 + i / per_layer, e = i % per_layer, c = c0 + e / vpr;
+      if (i < n && c >= 0 && c < R) {
+        const size_t dst = (((size_t)l * B + b) * R + c) * vpr + e % vpr;
+        if constexpr (INT4) {
+          dk[dst] = pack4(k[u][0], k[u][1]);
+          dv[dst] = pack4(v[u][0], v[u][1]);
+        } else {
+          dk[dst] = k[u][0];
+          dv[dst] = v[u][0];
+        }
+      }
+    }
+  }
 }
 
 __global__ void __launch_bounds__(THREADS) scatter_prefill_kernel(
@@ -203,6 +274,26 @@ __global__ void __launch_bounds__(THREADS) scatter_prefill4_kernel(
                     Lp, 0, T);
 }
 
+// Layers per reconcile block: as many as give each value thread RC_UNROLL
+// vectors of K and of V (S/2 packed rows a layer in int4).
+int reconcile_lpb(int L, int S, int KD, bool int4) {
+  const int per_layer = (int4 ? S / 2 : S) * (KD / 16);
+  return std::max(1, std::min(L, RC_VALUE_THREADS * RC_UNROLL / per_layer));
+}
+
+template <bool INT4>
+int reconcile(const void* sk, const void* sv, const void* sks, const void* svs,
+              const void* base, const void* active, void* k, void* v, void* ks, void* vs, int L,
+              int B, int T, int S, int KD, int seg_pad, cudaStream_t st) {
+  if (L == 0 || B == 0 || S == 0) return (int)cudaSuccess;
+  const int lpb = reconcile_lpb(L, S, KD, INT4);
+  reconcile_kernel<INT4><<<dim3(B, (L + lpb - 1) / lpb), RC_THREADS, 0, st>>>(
+      (const int8_t*)sk, (const int8_t*)sv, (const float*)sks, (const float*)svs,
+      (const int*)base, (const bool*)active, (int8_t*)k, (int8_t*)v, (float*)ks, (float*)vs,
+      L, B, T, S, KD, seg_pad, lpb);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // Returns cudaGetLastError() after the launch (cudaSuccess for an empty grid).
@@ -210,12 +301,8 @@ extern "C" int neutts_reconcile_segment(
     const void* sk, const void* sv, const void* sks, const void* svs, const void* base,
     const void* active, void* k, void* v, void* ks, void* vs, int L, int B, int T, int S,
     int KD, int seg_pad, void* stream) {
-  if (L == 0 || B == 0 || S == 0) return (int)cudaSuccess;
-  reconcile_kernel<<<dim3(B, L), THREADS, 0, (cudaStream_t)stream>>>(
-      (const int8_t*)sk, (const int8_t*)sv, (const float*)sks, (const float*)svs,
-      (const int*)base, (const bool*)active, (int8_t*)k, (int8_t*)v, (float*)ks, (float*)vs,
-      B, T, S, KD, seg_pad);
-  return (int)cudaGetLastError();
+  return reconcile<false>(sk, sv, sks, svs, base, active, k, v, ks, vs, L, B, T, S, KD, seg_pad,
+                          (cudaStream_t)stream);
 }
 
 extern "C" int neutts_scatter_prefill(
@@ -236,12 +323,8 @@ extern "C" int neutts_reconcile_segment4(
     const void* active, void* k, void* v, void* ks, void* vs, int L, int B, int T, int S,
     int KD, int seg_pad, void* stream) {
   if (T % 2 || S % 2) return (int)cudaErrorInvalidValue;
-  if (L == 0 || B == 0 || S == 0) return (int)cudaSuccess;
-  reconcile4_kernel<<<dim3(B, L), THREADS, 0, (cudaStream_t)stream>>>(
-      (const int8_t*)sk, (const int8_t*)sv, (const float*)sks, (const float*)svs,
-      (const int*)base, (const bool*)active, (int8_t*)k, (int8_t*)v, (float*)ks, (float*)vs,
-      B, T, S, KD, seg_pad);
-  return (int)cudaGetLastError();
+  return reconcile<true>(sk, sv, sks, svs, base, active, k, v, ks, vs, L, B, T, S, KD, seg_pad,
+                         (cudaStream_t)stream);
 }
 
 extern "C" int neutts_scatter_prefill4(
@@ -255,4 +338,14 @@ extern "C" int neutts_scatter_prefill4(
       (const int*)slots, (const bool*)primary, (int8_t*)k, (int8_t*)v, (float*)ks, (float*)vs,
       G, B, T, Lp, KD);
   return (int)cudaGetLastError();
+}
+
+// The reconcile's launch for L layers, S staging steps and K*D = KD, int8
+// or int4, for reports: layers per block, value threads and scale threads
+// per block, value vectors per thread and buffer in flight.
+extern "C" int neutts_reconcile_geometry(int L, int S, int KD, int int4, int* shape) {
+  const int v[4] = {reconcile_lpb(L, S, KD, int4 != 0), RC_VALUE_THREADS,
+                    RC_THREADS - RC_VALUE_THREADS, RC_UNROLL};
+  for (int i = 0; i < 4; ++i) shape[i] = v[i];
+  return 0;
 }

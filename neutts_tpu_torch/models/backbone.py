@@ -35,7 +35,8 @@ from neutts_tpu_torch.ops import mlp as mlp_ops
 
 Params = Dict[str, object]
 _PROJ = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
-_MLP_PROJ = ("w_gate", "w_up", "w_down")  # the fused MLP kernel's weights: K-major
+# the int8 weights of the fused QKV and MLP kernels: stored K-major
+_FUSED_PROJ = ("wqkv", "w_gate", "w_up", "w_down")
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
@@ -98,44 +99,45 @@ def quantize_weight(w: torch.Tensor) -> Dict[str, torch.Tensor]:
 def k_major(q: torch.Tensor) -> torch.Tensor:
     """An int8 weight [..., K, N] as a view of [..., N, K] storage (K
     contiguous): the operand layout of the int8 tensor cores in the fused
-    MLP kernel (`mma` takes B column-major). No copy if it is already so.
-    `torch._int_mm` takes the view as its transposed operand."""
+    QKV and MLP kernels (`mma` takes B column-major). No copy if it is
+    already so. `torch._int_mm` takes the view as its transposed operand."""
     return q if q.mT.is_contiguous() else q.mT.contiguous().mT
 
 
-def mlp_k_major(params: Params) -> Params:
-    """`params` with the quantized MLP weights (gate, up, down) stored
-    K-major; float weights, and weights already K-major, as they are.
-    Quantized trees from elsewhere (a checkpoint, the JAX package's arrays)
-    hold them [K, N] row-major. The K-major copy replaces the row-major one."""
+def fused_weights_k_major(params: Params) -> Params:
+    """`params` with the quantized weights of the fused kernels (the fused
+    "wqkv", gate, up, down) stored K-major; float weights, and weights
+    already K-major, as they are. Quantized trees from elsewhere (a
+    checkpoint, the JAX package's arrays) hold them [K, N] row-major. The
+    K-major copy replaces the row-major one."""
     layers = params["layers"]
-    if not isinstance(layers["w_gate"], dict) or all(
-            layers[n]["q"].mT.is_contiguous() for n in _MLP_PROJ):
+    names = [n for n in _FUSED_PROJ if isinstance(layers.get(n), dict)]
+    if all(layers[n]["q"].mT.is_contiguous() for n in names):
         return params
     layers = dict(layers)
-    for name in _MLP_PROJ:
+    for name in names:
         layers[name] = {**layers[name], "q": k_major(layers[name]["q"])}
     return {**params, "layers": layers}
 
 
 def prepare_params(params: Params, device) -> Params:
     """A parameter tree as the entry points (`NeuTTS`, `Engine`) run it:
-    every tensor on `device`, quantized MLP weights K-major (`mlp_k_major`),
-    whether the tree came from `quantize_params`, a checkpoint or the JAX
-    package's arrays."""
-    return mlp_k_major(tree_to(params, device))
+    every tensor on `device`, the fused kernels' quantized weights K-major
+    (`fused_weights_k_major`), whether the tree came from `quantize_params`,
+    a checkpoint or the JAX package's arrays."""
+    return fused_weights_k_major(tree_to(params, device))
 
 
 def quantize_params(params: Params) -> Params:
     """int8 W8A8 weights: the seven projections and the LM head become
     {"q", "s"} dicts, the MLP's K-major (`k_major`); "wqkv" adds the fused
-    [wq | wk | wv] copy with an f32 fused bias for the prefill `fused_qkv`
-    kernel. The embedding stays."""
+    [wq | wk | wv] copy, K-major, with an f32 fused bias for the prefill
+    `fused_qkv` kernel. The embedding stays."""
     layers = dict(params["layers"])
     for name in _PROJ:
         layers[name] = quantize_weight(layers[name])
-    layers["wqkv"] = {
-        "q": torch.cat([layers[n]["q"] for n in ("wq", "wk", "wv")], dim=-1).contiguous(),
+    layers["wqkv"] = {  # [N, D] storage made directly: no row-major copy
+        "q": torch.cat([layers[n]["q"].mT for n in ("wq", "wk", "wv")], dim=-2).mT,
         "s": torch.cat([layers[n]["s"] for n in ("wq", "wk", "wv")], dim=-1).contiguous(),
         "b": torch.cat([params["layers"][n].float() for n in ("bq", "bk", "bv")], dim=-1),
     }
@@ -143,7 +145,7 @@ def quantize_params(params: Params) -> Params:
     out["layers"] = layers
     head = params["lm_head"] if "lm_head" in params else params["embed"].T
     out["lm_head"] = quantize_weight(head)
-    return mlp_k_major(out)
+    return fused_weights_k_major(out)
 
 
 def quantized_weights(params: Params) -> bool:

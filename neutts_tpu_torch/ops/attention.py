@@ -450,6 +450,22 @@ def _reconcile_segment_cuda(all_k, all_v, k_scale, v_scale, stag_k, stag_v, stag
     return all_k, all_v, k_scale, v_scale
 
 
+def reconcile_geometry(L: int, B: int, S: int, KD: int, int4: bool) -> dict:
+    """The launch of csrc/slot_copy.cu's reconcile for L layers, B cache
+    rows, S staging steps and K*D = KD, int8 or int4 (needs the built
+    library): grid (rows, layer groups), layers per block, value threads and
+    scale threads per block, value vectors per thread and buffer in flight."""
+    import ctypes
+
+    fn = _build.bind("slot_copy.cu", "neutts_reconcile_geometry", 0, 4)  # (L, S, KD, int4, int*)
+    shape = (ctypes.c_int * 4)()
+    _build.check(fn(L, S, KD, int(int4), ctypes.addressof(shape)), "reconcile_geometry")
+    layers, value_threads, scale_threads, unroll = shape
+    return {"grid": (B, -(-L // layers)), "layers_per_block": layers,
+            "value_threads": value_threads, "scale_threads": scale_threads,
+            "vectors_in_flight": unroll}
+
+
 def scatter_prefill(all_k, all_v, k_scale, v_scale, new_k, new_v, new_ks, new_vs, slots,
                     primary):
     """Admission-group cache write, IN PLACE: for each admission row j with

@@ -57,7 +57,9 @@ def fused_qkv(x, norm_w, w_q, w_s, w_b, *, eps: float = 1e-6):
     """rms_norm + W8A8 quant + one [D, Q+2KV] int8 projection + bias.
 
     x [M, D] f32/bf16; norm_w [D]; w_q [D, N] int8; w_s, w_b [N] f32.
-    Returns [M, N] in x's dtype: cast(acc * xs * ws) + cast(bias)."""
+    Returns [M, N] in x's dtype: cast(acc * xs * ws) + cast(bias). The CUDA
+    kernel takes the weight K-major (`backbone.k_major`), as `fused_mlp`
+    does; the plain version takes either layout."""
     if x.device.type == "cpu":
         return fused_qkv_plain(x, norm_w, w_q, w_s, w_b, eps=eps)
     if x.device.type != "cuda":
@@ -80,8 +82,16 @@ def _check_w8a8(name, x, D, pairs):
     for w, s, n_out in pairs:
         if w.dtype != torch.int8 or s.dtype != torch.float32 or s.shape != (n_out,):
             raise TypeError(f"{name}: weights must be int8 with f32 [{n_out}] scales")
-        if w.data_ptr() % 4 or w.shape[0] % 4:
-            raise ValueError(f"{name}: weight rows must be 4-byte aligned")
+
+
+def _check_k_major(name, *weights):
+    """The int8 tensor-core GEMMs take K-major weights, 16-byte aligned."""
+    for w in weights:
+        if not w.mT.is_contiguous():
+            raise ValueError(f"{name}: weights must be K-major ([N, K] storage, "
+                             f"backbone.k_major), got strides {w.stride()}")
+        if w.data_ptr() % 16:
+            raise ValueError(f"{name}: weights must be 16-byte aligned")
 
 
 def _fused_qkv_cuda(x, norm_w, w_q, w_s, w_b, eps):
@@ -89,10 +99,14 @@ def _fused_qkv_cuda(x, norm_w, w_q, w_s, w_b, eps):
     M, D = x.shape
     N = w_q.shape[1]
     nw = norm_w.float().contiguous()
-    _build.check_inputs(name, x, nw, w_q, w_s, w_b)
+    _check_k_major(name, w_q)
+    # the K-major weight is contiguous as its transpose
+    _build.check_inputs(name, x, nw, w_q.mT, w_s, w_b)
     _check_w8a8(name, x, w_q.shape[0], [(w_q, w_s, N)])
     if w_b.dtype != torch.float32 or w_b.shape != (N,):
         raise TypeError(f"{name}: bias must be f32 [{N}]")
+    if D % 16 or N % 16:
+        raise ValueError(f"{name}: D={D} and N={N} must be multiples of 16")
     xq = torch.empty(M, D, dtype=torch.int8, device=x.device)
     xs = torch.empty(M, dtype=torch.float32, device=x.device)
     out = torch.empty(M, N, dtype=x.dtype, device=x.device)
@@ -135,17 +149,20 @@ def fused_mlp_plain(x, norm_w, wg_q, wg_s, wu_q, wu_s, wd_q, wd_s, *, eps: float
     return x + d.to(x.dtype)
 
 
-def mlp_tile() -> dict:
-    """The GEMM tiles of csrc/w8a8.cu's MLP kernels (needs the built
-    library): token rows and gate/up columns per gate/up block, token rows
-    and columns per down block, k bytes per stage, stages, threads."""
+def w8a8_tiles() -> dict:
+    """The GEMM tiles of csrc/w8a8.cu (needs the built library): QKV token
+    rows and k steps in flight per block below `qkv_wide_m` rows, the same
+    from there, QKV columns per block; token rows and columns per gate/up
+    block (columns of gate and of up) and per down block; k bytes per step;
+    the MLP's k steps in flight; threads per block."""
     import ctypes
 
-    fn = _build.bind("w8a8.cu", "neutts_fused_mlp_tile", 0, 0)  # (int*)
-    shape = (ctypes.c_int * 7)()
-    _build.check(fn(ctypes.addressof(shape)), "mlp_tile")
-    keys = ("gate_up_rows", "gate_up_cols", "down_rows", "down_cols", "k_bytes", "stages",
-            "threads")
+    fn = _build.bind("w8a8.cu", "neutts_w8a8_tiles", 0, 0)  # (int*)
+    shape = (ctypes.c_int * 13)()
+    _build.check(fn(ctypes.addressof(shape)), "w8a8_tiles")
+    keys = ("qkv_rows", "qkv_stages", "qkv_wide_rows", "qkv_wide_stages", "qkv_wide_m",
+            "qkv_cols", "gate_up_rows", "gate_up_cols", "down_rows", "down_cols", "k_bytes",
+            "mlp_stages", "threads")
     return dict(zip(keys, shape))
 
 
@@ -157,12 +174,7 @@ def _fused_mlp_cuda(x, norm_w, wg_q, wg_s, wu_q, wu_s, wd_q, wd_s, eps):
     if wu_q.shape != (D, Fd) or wd_q.shape != (Fd, D):
         raise ValueError(f"{name}: gate {tuple(wg_q.shape)}, up {tuple(wu_q.shape)}, "
                          f"down {tuple(wd_q.shape)}")
-    for w in (wg_q, wu_q, wd_q):
-        if not w.mT.is_contiguous():
-            raise ValueError(f"{name}: weights must be K-major ([N, K] storage, "
-                             f"backbone.k_major), got strides {w.stride()}")
-        if w.data_ptr() % 16:
-            raise ValueError(f"{name}: weights must be 16-byte aligned")
+    _check_k_major(name, wg_q, wu_q, wd_q)
     # the K-major weights are contiguous as their transposes
     _build.check_inputs(name, x, nw, wg_q.mT, wg_s, wu_q.mT, wu_s, wd_q.mT, wd_s)
     _check_w8a8(name, x, wg_q.shape[0], [(wg_q, wg_s, Fd), (wu_q, wu_s, Fd), (wd_q, wd_s, D)])

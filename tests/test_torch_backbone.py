@@ -107,23 +107,23 @@ def test_quantize_params_tree_matches(jparams):
     np.testing.assert_allclose(tq["layers"]["wqkv"]["b"].numpy(), jq["layers"]["wqkv"]["b"])
 
 
-@pytest.mark.parametrize("name", ["wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down"])
+@pytest.mark.parametrize("name", ["wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down", "wqkv"])
 def test_quantized_weight_layout(jparams, jquant, name):
-    """quantize_params stores the MLP's int8 weights K-major (the fused MLP
-    kernel's tensor-core operand layout): the [K, N] weight is a view of
-    [N, K] storage equal to the JAX package's q transposed. The other
-    projections stay row-major. prepare_params, which the entry points run
-    on every tree, gives a JAX-quantized tree handed over through
-    params_from_numpy the same layout and values; mlp_k_major leaves a
-    K-major tree as it is."""
-    mlp = name in ("w_gate", "w_up", "w_down")
+    """quantize_params stores the int8 weights of the fused kernels (the
+    fused QKV and the MLP) K-major, their tensor-core operand layout: the
+    [K, N] weight is a view of [N, K] storage equal to the JAX package's q
+    transposed. The other projections stay row-major. prepare_params, which
+    the entry points run on every tree, gives a JAX-quantized tree handed
+    over through params_from_numpy the same layout and values;
+    fused_weights_k_major leaves a K-major tree as it is."""
+    fused = name in ("w_gate", "w_up", "w_down", "wqkv")
     want = np.asarray(jquant["layers"][name]["q"])
     loaded = tbb.prepare_params(_to_torch(jquant), "cpu")
     for tree in (tbb.quantize_params(_to_torch(jparams)), loaded):
         got = tree["layers"][name]["q"]
-        assert got.mT.is_contiguous() == mlp and got.is_contiguous() != mlp
+        assert got.mT.is_contiguous() == fused and got.is_contiguous() != fused
         np.testing.assert_array_equal(got.mT.contiguous().numpy(), np.swapaxes(want, -1, -2))
-    assert tbb.mlp_k_major(loaded) is loaded
+    assert tbb.fused_weights_k_major(loaded) is loaded
 
 
 def test_k_major_mlp_matches_jax(jquant):
@@ -132,7 +132,7 @@ def test_k_major_mlp_matches_jax(jquant):
     same weights: fused_mlp within one quantization step (2e-2 of the
     output's range, as tests/test_torch_mlp.py), _mm to f32 rounding (the
     same int8 activations, an exact int32 product)."""
-    tl = tbb.layer_params(tbb.mlp_k_major(_to_torch(jquant)), 1)
+    tl = tbb.layer_params(tbb.fused_weights_k_major(_to_torch(jquant)), 1)
     jl = jax.tree_util.tree_map(lambda a: a[1], jquant["layers"])
     names = ("w_gate", "w_up", "w_down")
     assert all(tl[n]["q"].mT.is_contiguous() for n in names)
@@ -148,6 +148,46 @@ def test_k_major_mlp_matches_jax(jquant):
         np.testing.assert_allclose(tbb._mm(torch.from_numpy(h), tl[n]).numpy(),
                                    np.asarray(jbb._mm(jnp.asarray(h), jl[n])),
                                    rtol=1e-6, atol=1e-6)
+
+
+def test_prefill_fused_path_matches_jax(jquant, monkeypatch):
+    """An int8 TINY prefill of B * S = FUSED_MIN_M token rows (4 left-padded
+    prompts in a 512 bucket) takes the port's fused path, fused_qkv on the
+    K-major wqkv and fused_mlp in every layer (plain versions here), and
+    matches the JAX prefill (the separate projections on the CPU) within one
+    quantization step: logits and the int8 cache dequantized, each within
+    2e-2 of its range, on every real slot."""
+    B, S = 4, 512
+    assert B * S >= tmlp.FUSED_MIN_M
+    calls = {"fused_qkv": 0, "fused_mlp": 0}
+    for name in calls:
+        def counted(*a, _fn=getattr(tmlp, name), _name=name, **kw):
+            calls[_name] += 1
+            return _fn(*a, **kw)
+        monkeypatch.setattr(tmlp, name, counted)
+    jc, tc = JCFG.scaled(kv_dtype="int8"), CFG.scaled(kv_dtype="int8")
+    tp = tbb.prepare_params(_to_torch(jquant), "cpu")
+    assert tp["layers"]["wqkv"]["q"].mT.is_contiguous()
+    rng = np.random.default_rng(11)
+    lens = [512, 450, 301, 37]
+    prompts = [rng.integers(3, 300, n).tolist() for n in lens]
+    jt, jl = jdec.pad_prompts(prompts, pad_id=0, bucket=S)
+    tt, tl = tdec.pad_prompts(prompts, pad_id=0, bucket=S, device="cpu")
+    jlog, jcache = jbb.prefill(jc, jquant, jt, jl,
+                               jbb.KVCache.create(jc, B, max_len=S, dtype=jnp.float32))
+    tlog, tcache = tbb.prefill(tc, tp, tt, tl,
+                               tbb.KVCache.create(tc, B, max_len=S, device="cpu",
+                                                  dtype=torch.float32))
+    assert calls == {"fused_qkv": CFG.n_layers, "fused_mlp": CFG.n_layers}
+    jlog = np.asarray(jlog)
+    assert np.max(np.abs(tlog.numpy() - jlog)) <= 2e-2 * np.max(np.abs(jlog))
+    for vals, scales, jv, js in ((tcache.k, tcache.k_scale, jcache.k, jcache.k_scale),
+                                 (tcache.v, tcache.v_scale, jcache.v, jcache.v_scale)):
+        got = vals.float().numpy() * scales.numpy()[..., None]
+        want = np.asarray(jv, np.float32) * np.asarray(js)[..., None]
+        for b, n in enumerate(lens):
+            g, w = got[:, b, S - n:], want[:, b, S - n:]
+            assert np.max(np.abs(g - w)) <= 2e-2 * np.max(np.abs(w))
 
 
 @pytest.mark.parametrize("kv_dtype,quant", [

@@ -163,15 +163,57 @@ def test_fused_w8a8_kernels(dev, dtype):
     M, D, N, F = 200, 128, 192, 320  # M not a multiple of the 64-row tile
     x = _randn(dev, M, D, dtype=dtype, scale=0.5)
     nw = 1.0 + 0.1 * _randn(dev, D, seed=1)
-    w = bb.quantize_weight(_randn(dev, D, N, seed=2, scale=D**-0.5))
-    b = _randn(dev, N, seed=3, scale=0.05)
-    got = mlp_ops.fused_qkv(x, nw, w["q"], w["s"], b)
-    want = mlp_ops.fused_qkv_plain(x, nw, w["q"], w["s"], b)
+    w, b = _qkv_weight(dev, D, N)
+    got = mlp_ops.fused_qkv(x, nw, *w, b)
+    want = mlp_ops.fused_qkv_plain(x, nw, *w, b)
     assert float((got.float() - want.float()).abs().max()) <= 2e-2 * float(want.abs().max())
     args = (x, nw, *_mlp_weights(dev, D, F))
     got = mlp_ops.fused_mlp(*args)
     want = mlp_ops.fused_mlp_plain(*args)
     assert float((got.float() - want.float()).abs().max()) <= 3e-2 * float(want.abs().max())
+
+
+def _qkv_weight(dev, D, N):
+    """The fused [D, N] int8 weight (K-major, as backbone.quantize_params
+    stores it) with its scales, and an f32 bias."""
+    w = bb.quantize_weight(_randn(dev, D, N, seed=2, scale=D**-0.5))
+    return (bb.k_major(w["q"]), w["s"]), _randn(dev, N, seed=3, scale=0.05)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D,N", [(64, 128), (512, 768), (896, 1152)])  # TINY, Nano, Air
+@pytest.mark.parametrize("M", [200, 2112, 4096, 16400])
+def test_fused_qkv_tensor_core_kernel(dev, M, D, N, dtype):
+    """The int8 tensor-core QKV at the three model widths, token counts off
+    and on the 64-row tile and, at M 16400, on the 128-row tile it takes
+    from w8a8_tiles()["qkv_wide_m"] rows, against the plain version within
+    one quantization step: 2e-2 of the output's range; one launch per call."""
+    if M == 16400:
+        assert M >= mlp_ops.w8a8_tiles()["qkv_wide_m"]
+    x = _randn(dev, M, D, dtype=dtype, scale=0.5)
+    nw = 1.0 + 0.1 * _randn(dev, D, seed=1)
+    w, b = _qkv_weight(dev, D, N)
+    before = _build.launches["fused_qkv"]
+    got = mlp_ops.fused_qkv(x, nw, *w, b)
+    torch.cuda.synchronize()
+    assert _build.launches["fused_qkv"] == before + 1
+    want = mlp_ops.fused_qkv_plain(x, nw, *w, b)
+    assert got.dtype == dtype and got.shape == (M, N) and torch.isfinite(got.float()).all()
+    assert float((got.float() - want.float()).abs().max()) <= 2e-2 * float(want.abs().max())
+
+
+def test_fused_qkv_raises_on_row_major_weight(dev):
+    """The kernel takes a K-major weight only; a row-major one raises (no
+    fallback to the plain version), and so does a width off the 16 grid."""
+    x = _randn(dev, 64, 128, scale=0.5)
+    (wq, ws), b = _qkv_weight(dev, 128, 192)
+    before = _build.launches["fused_qkv"]
+    with pytest.raises(ValueError):
+        mlp_ops.fused_qkv(x, torch.ones(128, device=dev), wq.contiguous(), ws, b)
+    (wq, ws), b = _qkv_weight(dev, 128, 200)
+    with pytest.raises(ValueError):
+        mlp_ops.fused_qkv(x, torch.ones(128, device=dev), wq, ws, b)
+    assert _build.launches["fused_qkv"] == before
 
 
 def _mlp_weights(dev, D, F):
@@ -425,6 +467,42 @@ def test_reconcile_kernel_exact(dev):
     for x, y in zip(got, want):
         assert torch.equal(x, y)
     assert torch.equal(got[0][:, 1], bufs[0][:, 1])
+
+
+@pytest.mark.parametrize("active_rows", ["half", "none"])
+@pytest.mark.parametrize("int4", [False, True])
+def test_reconcile_air_serving_shape_exact(dev, int4, active_rows):
+    """Both reconcile modes at the Air serving shape (L 24, B 128, S 32,
+    K*D 128; T 2304 int8, 2560 int4): about half the rows active with one
+    ending exactly at T, or none; the cache equals the plain version's byte
+    for byte and inactive rows are untouched."""
+    L, B, S, KD = 24, 128, 32, 128
+    T = 2560 if int4 else 2304
+    g = torch.Generator(device=dev).manual_seed(12)
+    shape = (L, B, T // 2 if int4 else T, KD)
+    bufs = [torch.randint(-119, 120, shape, generator=g, device=dev, dtype=torch.int8)
+            for _ in range(2)]
+    bufs += [torch.rand((L, B, T), generator=g, device=dev) for _ in range(2)]
+    lo = 7 if int4 else 127
+    stag = [torch.randint(-lo, lo + 1, (L, B, S, KD), generator=g, device=dev,
+                          dtype=torch.int8) for _ in range(2)]
+    stag += [torch.rand((L, B, attn.SEG_PAD), generator=g, device=dev) for _ in range(2)]
+    base = torch.randint(0, (T - S) // 16 + 1, (B,), generator=g, device=dev,
+                         dtype=torch.int32) * 16
+    base[3] = T - S
+    if active_rows == "half":
+        active = torch.rand(B, generator=g, device=dev) < 0.5
+        active[3] = True
+    else:
+        active = torch.zeros(B, dtype=torch.bool, device=dev)
+    fn, plain = ((attn.reconcile_segment4, attn.reconcile_segment4_plain) if int4 else
+                 (attn.reconcile_segment, attn.reconcile_segment_plain))
+    got = fn(*(t.clone() for t in bufs), *stag, base, active)
+    torch.cuda.synchronize()
+    want = plain(*(t.clone() for t in bufs), *stag, base, active)
+    for x, y, before in zip(got, want, bufs):
+        assert torch.equal(x, y)
+        assert torch.equal(x[:, ~active], before[:, ~active])
 
 
 def test_scatter_prefill_kernel_exact(dev):

@@ -62,11 +62,14 @@ def test_fused_mlp_matches_kernel_and_oracle(m, d, f, dtype):
         assert _rel_err(got, want_k) <= 2e-2
 
 
+@pytest.mark.parametrize("k_major", [False, True])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_fused_qkv_matches_kernel_and_oracle(dtype):
+def test_fused_qkv_matches_kernel_and_oracle(dtype, k_major):
     """fused_qkv plain vs the Pallas kernel, its XLA oracle (which also
     rounds the normed activation through the model dtype), and the separate
-    rms_norm + three _mm projections of the port."""
+    rms_norm + three _mm projections of the port; with the fused weight
+    row-major (the JAX layout) and K-major (the port's stored layout,
+    `backbone.k_major`)."""
     rng = np.random.default_rng(4)
     d, qd, kv, m = 128, 128, 64, 64
     x = (rng.normal(size=(m, d)) * 0.5).astype(np.float32)
@@ -79,7 +82,12 @@ def test_fused_qkv_matches_kernel_and_oracle(dtype):
     bq = np.concatenate(bs, -1)
     jx = jnp.asarray(x, dtype)
     tx = torch.from_numpy(x).to(getattr(torch, dtype))
-    got = tmlp.fused_qkv(tx, *(torch.from_numpy(a) for a in (nw, wq, sq, bq)))
+    tw = torch.from_numpy(wq)
+    if k_major:
+        tw = tbb.k_major(tw)
+        assert tw.mT.is_contiguous() and not tw.is_contiguous()
+    got = tmlp.fused_qkv(tx, torch.from_numpy(nw), tw, torch.from_numpy(sq),
+                         torch.from_numpy(bq))
     assert got.dtype == tx.dtype
     got = got.float().numpy()
     jargs = (jx, jnp.asarray(nw), wq, sq, bq)
