@@ -35,7 +35,26 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
   8. main path, W8A8 with kv_dtype="auto" (the int4 cache): infer_batch over
      the 8 prompts of phase 4;
   9. serving, W8A8 with kv_dtype="auto": the mix of phase 6 (int4 KV: staged
-     int4 decode, reconcile4, scatter-prefill4).
+     int4 decode, reconcile4, scatter-prefill4);
+ 10. voice cloning: NeuTTS.encode_reference with the real NeuCodec encoder
+     composition at full width (XCodec2 acoustic stack, w2v-BERT 2.0 tower
+     tapped after layer 16, conv SemanticEncoder, fc_prior 2048 -> 2048) on
+     samples/demo.wav (2 s) and on a 10 s clip of it tiled five times:
+     codes, the card against the CPU on the 2 s clip (largest latent
+     difference within 1e-4 of the latent's scale, code frames that differ,
+     and the same encode with TF32 allowed, which must exceed that limit),
+     ms per encode (mel on the host,
+     the codec on the card), peak memory;
+ 11. streaming: NeuTTS.infer_stream at Air width, bf16 weights and KV, the
+     CODEC decoder, watermark on, phase 10's 500 codes as the reference
+     (time to first audio split into prefill, first segment and first
+     window vocoded with its watermark; ms per chunk against the 500 ms of
+     audio it carries; peak memory), then a stream with a 10-frame first
+     chunk closed after its third chunk; prefill attention (#5) against its
+     plain version at the stream's prefill shape (B 1, its bucket and left
+     pad); one steady chunk (a 25-step segment and an 82-frame window
+     vocoded and watermarked) under torch.profiler for its device busy time
+     and idle share.
 Each main path runs with the launch counts set to 0 just before it and read
 just after. Before the last two lines: the report, the nvidia-smi card line
 and the JSON object {"kernels": [...]}; the last line is {"ok": true,
@@ -46,6 +65,7 @@ run without the rest of the repository.
 
 from __future__ import annotations
 
+import dataclasses
 import gc
 import json
 import subprocess
@@ -221,7 +241,7 @@ def main() -> int:
         return 1e-2 * want.float().abs().amax(dim=(1, 2, 3), keepdim=True)
 
     def record(key, got, want, tol, ms, plain_ms, library_ms, nbytes, ops, peak, replaces,
-               source, *, dev_ms, into=results):
+               source, *, dev_ms, into=results, phase="3"):
         """One kernel's entry; got/want are a tensor or a tuple of tensors.
         tol 0 asks for equality; a tensor tol is a limit per element
         (broadcast against want), reported as its largest value. dev_ms is
@@ -245,7 +265,7 @@ def main() -> int:
             "device_warm_ms": dev_ms[0], "device_ms": dev_ms[1],
         }
         lib = "n/a" if library_ms is None else f"{library_ms:.4f}"
-        print(f"[3] {key}: max_abs_err {err:.3e} (tol {tol:.3e}{note}) | ms {ms:.4f} | device "
+        print(f"[{phase}] {key}: max_abs_err {err:.3e} (tol {tol:.3e}{note}) | ms {ms:.4f} | device "
               f"{dev_ms[0]:.4f} warm L2, {dev_ms[1]:.4f} L2 flushed | plain {plain_ms:.4f} | "
               f"library {lib} | bound {bms:.4f} ({by})")
         require(ok, f"{key} disagrees with its plain version")
@@ -328,7 +348,7 @@ def main() -> int:
 
     # prefill attention, B = 8, S = 512, ragged left pads; then the
     # admission shape B = 64, S = 512 (prompts of 380-512 tokens)
-    def prefill_shape(key, Bx, S, pads_x, into):
+    def prefill_shape(key, Bx, S, pads_x, into, phase="3"):
         pads = torch.tensor(pads_x, dtype=torch.int32, device=dev)
         pq, pk, pv = randn(Bx, S, H, D), randn(Bx, S, K, D), randn(Bx, S, K, D)
         got = attn.prefill_attention(pq, pk, pv, pads)
@@ -352,7 +372,7 @@ def main() -> int:
         record(key, got, want, 2e-2, ms, plain_ms, lib_ms,
                rows * (H + 2 * K) * D * 2 + Bx * S * H * D * 2 + 4 * Bx, 4.0 * H * D * pairs,
                PEAK_BF16, "neutts_tpu/ops/attention.py:1525",
-               "neutts_tpu_torch/csrc/prefill_attention.cu", into=into, dev_ms=dms)
+               "neutts_tpu_torch/csrc/prefill_attention.cu", into=into, dev_ms=dms, phase=phase)
 
     tile = attn.prefill_tile(G, D, torch.bfloat16)
     print(f"[3] prefill_attention bf16 tile: {tile['query_positions']} query positions x "
@@ -963,16 +983,199 @@ def main() -> int:
         require(s4["launches"][k] == 0, f"W8A8 auto serving launched {k}")
     report["phases"]["w8a8_auto_serving"] = s4
 
+    # --- 10. voice cloning: encode_reference at full width ------------------------------
+    from neutts_tpu_torch.audio import io as audio_io
+    from neutts_tpu_torch.models import codec as cd
+
+    codec_cfg = config.CODEC.scaled(enc_family="codecenc", codecenc=config.CodecEncConfig(),
+                                    semantic=config.SemanticConfig(), sem_encoder="conv")
+    tts = NeuTTS.initialize_random(config.AIR, codec_cfg, seed=6, device=dev, sampling=sampling)
+    clip2 = ROOT / "samples" / "demo.wav"
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    clip10 = out_dir / "demo_x5.wav"
+    wav2 = audio_io.load_for_encoding(clip2, prefer_native=False)
+    audio_io.write_wav(clip10, np.tile(wav2, 5), 16_000)
+    enc: dict = {}
+    for label, clip in (("2s", clip2), ("10s", clip10)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        runs = []
+        for _ in range(3):  # the first call also warms cuDNN and the allocator
+            codes10 = tts.encode_reference(clip)
+            runs.append(dict(tts.last_stats))
+        n = runs[0]["samples"] // 320
+        require(codes10.dtype == np.int32 and codes10.shape == (n,),
+                f"encode {label}: codes {codes10.dtype} {codes10.shape}, want int32 ({n},)")
+        require(bool(((codes10 >= 0) & (codes10 < 65_536)).all()), f"encode {label}: code range")
+        warm = runs[1:]
+        enc[label] = {
+            "samples": runs[0]["samples"], "codes": n,
+            "first_call_ms": {k[:-2]: v * 1e3 for k, v in runs[0].items() if k.endswith("_s")},
+            "mel_ms": sum(r["mel_s"] for r in warm) * 1e3 / len(warm),
+            "device_ms": sum(r["encode_s"] for r in warm) * 1e3 / len(warm),
+            "load_ms": sum(r["load_s"] for r in warm) * 1e3 / len(warm),
+            "distinct_codes": int(len(np.unique(codes10))),
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+        }
+        print(f"[10] encode_reference {label} ({runs[0]['samples']} samples): {n} codes "
+              f"({enc[label]['distinct_codes']} distinct) | mel {enc[label]['mel_ms']:.1f} ms "
+              f"(host) + codec {enc[label]['device_ms']:.1f} ms (card, to the codes on the "
+              f"host) + load {enc[label]['load_ms']:.1f} ms | first call "
+              f"{enc[label]['first_call_ms']} | peak {enc[label]['peak_mem_gb']:.2f} GB")
+    ref_codes500 = codes10
+    # the 2 s clip on the card against the CPU (same weights, plain f32 on both)
+    from neutts_tpu_torch.audio import mel
+
+    sem2 = torch.as_tensor(mel.semantic_features(np.pad(wav2, (160, 160))))[None]
+    p_cpu = tree_to(tts.codec_params, "cpu")
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        z_cpu = cd.encode_latent(codec_cfg, p_cpu, torch.as_tensor(wav2)[None], sem2)
+        z_gpu = cd.encode_latent(codec_cfg, tts.codec_params,
+                                 torch.as_tensor(wav2, device=dev)[None], sem2.to(dev)).cpu()
+    cpu_s = time.perf_counter() - t0
+    del p_cpu
+    zdiff = float((z_gpu - z_cpu).abs().max())
+    zscale = float(z_cpu.abs().max())
+    codes_cpu = cd.digits_to_code(cd.fsq_quantize(cd.fsq_bound(z_cpu, codec_cfg.fsq_levels),
+                                                  codec_cfg.fsq_levels), codec_cfg.fsq_levels)
+    codes_gpu = tts.encode_reference(clip2)
+    flips = np.flatnonzero(codes_cpu[0].numpy() != codes_gpu)
+    # distance of each frame's scaled latent (zb * h, rounded to the digit)
+    # from the nearest rounding boundary; |d(zb * h)/dz| <= half_l < 2, so a
+    # frame flips by rounding only if it lies within 2 * zdiff of one
+    h = cd._fsq_consts(codec_cfg.fsq_levels, "cpu")[0]
+    zh = cd.fsq_bound(z_cpu, codec_cfg.fsq_levels)[0] * h
+    margin = (zh - torch.floor(zh) - 0.5).abs().amin(dim=-1).numpy()
+    enc["card_vs_cpu_2s"] = {
+        "max_latent_diff": zdiff, "latent_scale": zscale, "frames_differing": int(len(flips)),
+        "frames": int(codes_gpu.shape[0]), "flipped_frame_margins": margin[flips].tolist(),
+        "smallest_margin": float(margin.min()), "cpu_and_card_s": cpu_s}
+    print(f"[10] 2 s clip, card vs CPU: max latent diff {zdiff:.3e} (latent scale {zscale:.2f})"
+          f" | {len(flips)} of {codes_gpu.shape[0]} code frames differ (their distance to a "
+          f"rounding boundary: {margin[flips].tolist()}; the smallest of any frame "
+          f"{float(margin.min()):.2e})")
+    # the negative control: the same encode with TF32 allowed in cuBLAS and
+    # cuDNN, the fault this limit is there to catch
+    zlimit = 1e-4 * max(1.0, zscale)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+    with torch.inference_mode():
+        z_tf32 = cd.encode_latent(codec_cfg, tts.codec_params,
+                                  torch.as_tensor(wav2, device=dev)[None], sem2.to(dev)).cpu()
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    tf32_diff = float((z_tf32 - z_cpu).abs().max())
+    enc["card_vs_cpu_2s"].update(limit=zlimit, tf32_max_latent_diff=tf32_diff)
+    print(f"[10] limit {zlimit:.3e} (1e-4 of the latent scale); the same encode with TF32 "
+          f"allowed: max latent diff {tf32_diff:.3e}")
+    require(np.isfinite(zdiff) and zdiff <= zlimit, "the encoder on the card disagrees with the CPU")
+    require(tf32_diff > zlimit, "the card-vs-CPU limit does not see TF32 in the encoder")
+    require(bool((margin[flips] <= 2 * zdiff).all()),
+            "a code frame differs between the card and the CPU away from any rounding boundary")
+    report["phases"]["encode_reference"] = enc
+
+    # --- 11. streaming: infer_stream at Air width -----------------------------------------
+    text = "Streaming synthesis on the graphics card, one chunk at a time."
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    chunks = []
+    for ch in tts.infer_stream(text, ref_codes500, ref_text):
+        require(isinstance(ch, np.ndarray) and ch.dtype == np.float32 and ch.ndim == 1,
+                "stream: a chunk is not float32 [n]")
+        require(bool(np.isfinite(ch).all()), "stream: non-finite samples")
+        chunks.append(ch)
+    wall = time.perf_counter() - t0
+    counts = dict(_build.launches)
+    st = tts.last_stats
+    require(len(chunks) >= 2 and st["n_codes"] > 0, f"stream: {len(chunks)} chunks")
+    seg_ms = [x * 1e3 for x in st["segment_s"]]
+    voc_ms = [x * 1e3 for x in st["chunk_s"]]
+    n_first = st["first_audio_segments"]  # 2: the first window needs 25 + 5 new frames
+    stream = {
+        "bucket": st["bucket"], "n_codes": st["n_codes"], "chunks": len(chunks),
+        "samples": int(sum(c.size for c in chunks)), "wall_s": wall,
+        "first_audio_ms": st["first_audio_s"] * 1e3, "prompt_ms": st["prompt_s"] * 1e3,
+        "prefill_ms": st["prefill_s"] * 1e3, "first_audio_segments": n_first,
+        "first_audio_decode_ms": sum(seg_ms[:n_first]), "segments_ms": seg_ms,
+        "first_window_vocode_watermark_ms": voc_ms[0],
+        "segment_ms_mean": sum(seg_ms[1:]) / max(len(seg_ms) - 1, 1),
+        "vocode_watermark_ms_mean": sum(voc_ms[1:]) / max(len(voc_ms) - 1, 1),
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, "launches": counts,
+    }
+    stream["chunk_ms"] = stream["segment_ms_mean"] + stream["vocode_watermark_ms_mean"]
+    print(f"[11] infer_stream: bucket {st['bucket']}, {st['n_codes']} codes in {len(chunks)} "
+          f"chunks, {stream['samples']} samples, wall {wall:.1f} s | first audio "
+          f"{stream['first_audio_ms']:.1f} ms = prompt {stream['prompt_ms']:.1f} + prefill "
+          f"{stream['prefill_ms']:.1f} + decode of {n_first} segments ({25 * n_first} steps) "
+          f"{stream['first_audio_decode_ms']:.1f} (first {seg_ms[0]:.1f}) + first window "
+          f"vocoded with its watermark {voc_ms[0]:.1f} | per chunk {stream['chunk_ms']:.1f} ms "
+          f"= decode 25 steps {stream['segment_ms_mean']:.1f} + vocode+watermark "
+          f"{stream['vocode_watermark_ms_mean']:.1f}, against 500 ms of audio | peak "
+          f"{stream['peak_mem_gb']:.1f} GB | launches {counts}")
+    for k in ("decode_attention_bf16", "prefill_attention"):
+        require(counts[k] > 0, f"the stream never launched {k}")
+    report["phases"]["bf16_stream"] = stream
+    # the low-latency first chunk: a stream closed after its third chunk
+    tts.streaming = dataclasses.replace(tts.streaming,
+                                        first_chunk_frames=config.STREAMING_LOW_LATENCY_FIRST)
+    gen_stream = tts.infer_stream(text, ref_codes500, ref_text)
+    sizes = [next(gen_stream).size for _ in range(3)]
+    gen_stream.close()
+    st = tts.last_stats
+    low = {"first_audio_ms": st["first_audio_s"] * 1e3, "prompt_ms": st["prompt_s"] * 1e3,
+           "prefill_ms": st["prefill_s"] * 1e3, "first_audio_segments": st["first_audio_segments"],
+           "first_segment_ms": st["segment_s"][0] * 1e3,
+           "first_window_vocode_watermark_ms": st["chunk_s"][0] * 1e3, "chunk_samples": sizes}
+    require(low["first_audio_segments"] == 1, "the 10-frame first chunk waited for a 2nd segment")
+    require(sizes[0] == config.STREAMING_LOW_LATENCY_FIRST * 480, f"first chunk {sizes[0]}")
+    print(f"[11] first_chunk_frames {config.STREAMING_LOW_LATENCY_FIRST}: first audio "
+          f"{low['first_audio_ms']:.1f} ms = prompt {low['prompt_ms']:.1f} + prefill "
+          f"{low['prefill_ms']:.1f} + first segment "
+          f"(15 steps) {low['first_segment_ms']:.1f} + first window "
+          f"{low['first_window_vocode_watermark_ms']:.1f} | chunks {sizes} samples, closed")
+    report["phases"]["bf16_stream_low_latency"] = low
+    # kernel #5 at the stream's own prefill shape: batch 1, its bucket, its left pad
+    prompt = tts._build_prompt(text, ref_codes500, ref_text)
+    Sb = stream["bucket"]
+    prefill_shape(f"prefill_attention@B1_S{Sb}", 1, Sb, [Sb - len(prompt)], shapes, phase="11")
+    # one steady chunk's work under torch.profiler, last in the script (a
+    # profiling session slows the process's later launches): a 25-step
+    # segment read to the host, and an 82-frame window vocoded and watermarked
+    from neutts_tpu_torch.tools.profile_decode import _window
+
+    toks, lens_p = dec.pad_prompts([prompt], pad_id=getattr(tts.tokenizer, "pad_id", 0),
+                                   bucket=Sb, device=dev)
+    seg_state = dec.prefill_init(tts.backbone_cfg, tts.sampling, tts._eos, tts.backbone_params,
+                                 toks, lens_p, tts._generator)[0]
+    window = ref_codes500[:82].tolist()
+
+    def one_chunk():
+        nonlocal seg_state
+        seg_state, seg = dec.decode_segment(tts.backbone_cfg, tts.sampling, tts._eos, 25,
+                                            tts.backbone_params, seg_state)
+        seg[0].cpu()
+        tts._watermark(tts._vocode(window))
+
+    one_chunk()
+    prof = _window(one_chunk, "[11] one stream chunk, profiled")
+    prof["idle_share_unprofiled"] = 1.0 - prof["device_busy_ms"] / stream["chunk_ms"]
+    print(f"[11] stream chunk: device busy {prof['device_busy_ms']:.1f} ms of the unprofiled "
+          f"{stream['chunk_ms']:.1f} ms per chunk: idle {100 * prof['idle_share_unprofiled']:.1f}%")
+    stream["profiled_chunk"] = prof
+    del tts, gen_stream, seg_state
+    gc.collect()
+    torch.cuda.empty_cache()
+
     # --- report ------------------------------------------------------------------------
-    paths = (w8, d16, s8, s16, w4, s4)
+    paths = (w8, d16, s8, s16, w4, s4, stream)
     for key, r in results.items():
         # a shape row (name@shape) counts its kernel's launches at every shape
         r["launches"] = sum(ph["launches"][key.split("@")[0]] for ph in paths)
     kernels = {"kernels": list(results.values())}
     report["kernel_shapes"] = shapes
     report["total_s"] = time.perf_counter() - t_start
-    out_dir = ROOT / "chiprun_out"
-    out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps({**report, **kernels}, indent=1))
     print(json.dumps(report))
     print(f"total {report['total_s']:.1f} s")

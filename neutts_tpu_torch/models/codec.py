@@ -1,5 +1,14 @@
-"""NeuCodec-equivalent codec, decode side, in PyTorch (port of the decoder
-half of `neutts_tpu.models.codec`).
+"""NeuCodec-equivalent codec in PyTorch (port of `neutts_tpu.models.codec`).
+
+Encode (voice cloning):
+
+    wav [B, T@16k] -> acoustic branch ("ours": conv stem + strided residual
+    stages; "codecenc": the XCodec2/DAC stack, models/codecenc.py)
+    [+ w2v-BERT semantic branch over host log-mel features, models/semantic.py,
+    concatenated SEMANTIC-FIRST] -> fc_prior -> project_in -> FSQ bound ->
+    digits -> codes [B, floor(T/320)] int32
+
+Decode:
 
     codes [B, N] -> FSQ digits -> lattice values -> project_out -> fc_post_a
     -> embed conv (k7) -> transformer or ConvNeXt backbone over the 50 Hz
@@ -27,6 +36,7 @@ import torch
 import torch.nn.functional as F
 
 from neutts_tpu_torch.config import CodecConfig
+from neutts_tpu_torch.models import codecenc, semantic
 
 Params = Dict[str, Any]
 
@@ -54,6 +64,48 @@ def layer_norm(x, scale, bias, eps):
 
 
 # --- FSQ (lucidrains conventions) ----------------------------------------------------
+#
+# For level L: half_width h = L // 2, half_l = (L-1)(1+eps)/2, offset
+# o = 0.5 if L even else 0, shift = atanh(o / half_l). Bounded latent
+# (normalized): (tanh(z + shift) * half_l - o) / h; lattice points are
+# {(d - h)/h : d in [0, L)}. Index packing is little-endian mixed radix.
+
+_FSQ_EPS = 1e-3  # lucidrains FSQ bound epsilon
+
+
+def _fsq_consts(levels: Tuple[int, ...], device):
+    """(half_width, half_l, offset, shift), each [len(levels)] f32."""
+    lv = torch.tensor(levels, dtype=torch.float32, device=device)
+    half_width = torch.floor(lv / 2.0)
+    half_l = (lv - 1.0) * (1.0 + _FSQ_EPS) / 2.0
+    offset = torch.where(lv % 2 == 0, 0.5, 0.0)
+    shift = torch.atanh(offset / half_l)
+    return half_width, half_l, offset, shift
+
+
+def fsq_bound(z: torch.Tensor, levels: Tuple[int, ...]) -> torch.Tensor:
+    """Raw latent [..., D] -> bounded NORMALIZED latent (quantizer domain)."""
+    h, half_l, offset, shift = _fsq_consts(levels, z.device)
+    return (torch.tanh(z + shift) * half_l - offset) / h
+
+
+def fsq_quantize(zb: torch.Tensor, levels: Tuple[int, ...]) -> torch.Tensor:
+    """Bounded normalized latent [..., D] -> integer digits [..., D] in [0, L)
+    (round half to even, as jnp.round)."""
+    lv = torch.tensor(levels, dtype=torch.float32, device=zb.device)
+    h = torch.floor(lv / 2.0)
+    digits = torch.round(zb * h) + h
+    return torch.minimum(torch.clamp(digits, min=0), lv - 1).to(torch.int32)
+
+
+def digits_to_code(digits: torch.Tensor, levels: Tuple[int, ...]) -> torch.Tensor:
+    """Mixed-radix pack: code = sum_i digit_i * prod(levels[:i]). [..., D] -> [...]."""
+    base = 1
+    code = torch.zeros(digits.shape[:-1], dtype=torch.int32, device=digits.device)
+    for i, L in enumerate(levels):
+        code = code + digits[..., i] * base
+        base *= L
+    return code
 
 
 def code_to_digits(code: torch.Tensor, levels: Tuple[int, ...]) -> torch.Tensor:
@@ -113,13 +165,14 @@ def istft_same(spec_real, spec_imag, n_fft: int, hop: int, n_valid=None):
     return y[:, pad : pad + T * hop] / torch.clamp(env[pad : pad + T * hop], min=1e-11)
 
 
-# --- parameter init (decoder half) -----------------------------------------------------
+# --- parameter init ------------------------------------------------------------------
 
 
 def init_params(cfg: CodecConfig, seed: int = 0, device="cuda") -> Params:
-    """Random decoder weights from `seed` on `device`, with the JAX init's
-    shapes and scales. The encoder half is not ported yet: the tree holds
-    only "dec". The random streams differ from jax.random's."""
+    """Random weights from `seed` on `device`, with the JAX init's tree,
+    shapes and scales: "dec", then "enc" (acoustic branch of
+    `cfg.enc_family`, the semantic branch when `cfg.semantic` is set,
+    fc_prior and project_in). The random streams differ from jax.random's."""
     gen = torch.Generator(device=device).manual_seed(seed)
 
     def winit(shape, gain=1.0):
@@ -178,7 +231,112 @@ def init_params(cfg: CodecConfig, seed: int = 0, device="cuda") -> Params:
     d["final_norm_b"] = zeros(D)
     d["head_w"] = winit((D, cfg.n_fft + 2))
     d["head_b"] = zeros(cfg.n_fft + 2)
-    return {"dec": d}
+
+    # encoder: the acoustic branch, then the optional semantic branch
+    e: Params = {}
+    if cfg.enc_family == "codecenc":
+        e["acoustic"] = codecenc.init_params(cfg.codecenc, gen, device)
+        prior_in = cfg.codecenc.out_channels
+    else:
+        c0 = cfg.enc_channels[0]
+        e["stem_w"] = winit((7, 1, c0))
+        e["stem_b"] = zeros(c0)
+        stages = []
+        cin = c0
+        for st, cout in zip(cfg.enc_strides, cfg.enc_channels):
+            stages.append({
+                "res1_w1": winit((3, cin, cin)), "res1_b1": zeros(cin),
+                "res1_w2": winit((1, cin, cin)), "res1_b2": zeros(cin),
+                "down_w": winit((2 * st, cin, cout)), "down_b": zeros(cout),
+            })
+            cin = cout
+        e["stages"] = stages
+        e["post_w"] = winit((3, cin, cfg.enc_hidden))
+        e["post_b"] = zeros(cfg.enc_hidden)
+        prior_in = cfg.enc_hidden
+    if cfg.semantic is not None:
+        e["semantic"] = semantic.init_params(cfg.semantic, gen, device)
+        if cfg.sem_encoder == "conv":
+            e["sem_enc"] = codecenc.init_semantic_encoder(
+                gen, cfg.semantic.hidden, cfg.sem_proj_dim, device=device)
+        else:
+            e["sem_proj_w"] = winit((cfg.semantic.hidden, cfg.sem_proj_dim))
+            e["sem_proj_b"] = zeros(cfg.sem_proj_dim)
+        prior_in += cfg.sem_proj_dim
+    # project_in gain 6: the raw latent must span the FSQ lattice cells at
+    # init, or every frame lands in the center cell
+    e["prior_w"] = winit((prior_in, cfg.vq_dim))
+    e["prior_b"] = binit(cfg.vq_dim, prior_in)
+    e["project_in_w"] = winit((cfg.vq_dim, cfg.fsq_dim), gain=6.0)
+    e["project_in_b"] = binit(cfg.fsq_dim, cfg.vq_dim)
+    return {"enc": e, "dec": d}
+
+
+# --- encoder ----------------------------------------------------------------------
+
+
+def _act(x):
+    return F.leaky_relu(x, 0.1)
+
+
+def acoustic_features(cfg: CodecConfig, params: Params, wav: torch.Tensor) -> torch.Tensor:
+    """wav [B, T] 16 kHz mono in [-1, 1] -> acoustic branch [B, T/320, H]:
+    the XCodec2/DAC stack ("codecenc") or the from-scratch stages ("ours")."""
+    e = params["enc"]
+    if cfg.enc_family == "codecenc":
+        return codecenc.forward(cfg.codecenc, e["acoustic"], wav)
+    x = conv1d(wav[..., None], e["stem_w"], e["stem_b"])
+    for st, s in zip(e["stages"], cfg.enc_strides):
+        r = conv1d(_act(x), st["res1_w1"], st["res1_b1"])
+        x = x + conv1d(_act(r), st["res1_w2"], st["res1_b2"])
+        x = conv1d(_act(x), st["down_w"], st["down_b"], stride=s)
+    return conv1d(_act(x), e["post_w"], e["post_b"])
+
+
+def encode_features(cfg: CodecConfig, params: Params, wav: torch.Tensor,
+                    sem_feats=None) -> torch.Tensor:
+    """wav [B, T] -> features [B, T/320, vq_dim]. With `cfg.semantic` set,
+    sem_feats [B, T/320, semantic.input_dim] (audio/mel.py
+    `semantic_features` of the 160-padded waveform) go through the w2v-BERT
+    tower and its projection, and are concatenated SEMANTIC-FIRST with the
+    acoustic branch, trimmed to the shorter length, before fc_prior."""
+    e = params.get("enc")
+    if e is None:
+        raise ValueError("decoder-only codec checkpoint: encoding reference audio needs "
+                         "encoder weights (params['enc'])")
+    x = acoustic_features(cfg, params, wav)
+    if cfg.semantic is not None:
+        if "semantic" not in e:
+            raise ValueError("cfg.semantic is set but the checkpoint has no semantic-tower "
+                             "weights (params['enc']['semantic'])")
+        if sem_feats is None:
+            raise ValueError("cfg.semantic is set: pass sem_feats (audio/mel.py "
+                             "semantic_features of the 160-padded waveform)")
+        sem = semantic.forward(cfg.semantic, e["semantic"], sem_feats)
+        if cfg.sem_encoder == "conv":
+            sem = codecenc.semantic_encoder(e["sem_enc"], sem)
+        else:
+            sem = sem @ e["sem_proj_w"] + e["sem_proj_b"]
+        n = min(x.shape[1], sem.shape[1])
+        x = torch.cat([sem[:, :n], x[:, :n]], dim=-1)
+    return x @ e["prior_w"] + e["prior_b"]
+
+
+def encode_latent(cfg: CodecConfig, params: Params, wav: torch.Tensor,
+                  sem_feats=None) -> torch.Tensor:
+    """wav [B, T] -> raw FSQ latent [B, T/320, fsq_dim] (before the bound)."""
+    feats = encode_features(cfg, params, wav, sem_feats)
+    return feats @ params["enc"]["project_in_w"] + params["enc"]["project_in_b"]
+
+
+@torch.inference_mode()
+def encode(cfg: CodecConfig, params: Params, wav: torch.Tensor, sem_feats=None) -> torch.Tensor:
+    """wav [B, T@16k] -> int32 codes [B, floor(T/320)] in [0, 65536): the
+    input is cut to whole 320-sample frames first."""
+    T = wav.shape[-1]
+    wav = wav[..., : (T // cfg.hop_in) * cfg.hop_in]
+    zb = fsq_bound(encode_latent(cfg, params, wav, sem_feats), cfg.fsq_levels)
+    return digits_to_code(fsq_quantize(zb, cfg.fsq_levels), cfg.fsq_levels)
 
 
 # --- decoder ------------------------------------------------------------------------

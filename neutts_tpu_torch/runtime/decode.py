@@ -1,5 +1,7 @@
 """Autoregressive decode: prefill, then a host loop of decode steps (port of
-`neutts_tpu.runtime.decode`, the `generate` path).
+`neutts_tpu.runtime.decode`): `generate` for the batch path, and the
+segmented decode of streaming (`prefill_init`, then `decode_segment` once
+per chunk, the state kept on the device between segments).
 
 Semantics kept from the JAX package:
   * prompts are LEFT-padded to a bucket, so every row's next token lands at
@@ -10,13 +12,15 @@ Semantics kept from the JAX package:
     emitting EOS without growing their length;
   * the loop ends when every row is done or `cap` steps have run.
 
-The JAX loop is one jitted `lax.while_loop`; here it is a Python loop that
-reads one flag from the device per step to stop early.
+The JAX loop is one jitted `lax.while_loop`; here `generate` is a Python
+loop that reads one flag from the device per step to stop early, and
+`decode_segment` runs its steps with no read of the device at all.
 """
 
 from __future__ import annotations
 
 import time
+from dataclasses import dataclass
 from typing import NamedTuple, Optional, Tuple
 
 import torch
@@ -137,3 +141,98 @@ def extract(result: GenerateResult, row: int, eos_id: int) -> list:
     if toks and toks[-1] == eos_id:
         toks = toks[:-1]
     return toks
+
+
+# --- segmented decode (streaming) ------------------------------------------------
+#
+# Streaming prefills once, then runs one `decode_segment` per chunk of
+# tokens. Everything the loop carries stays on the device between segments;
+# the caller reads `done` once per segment, as the JAX pipeline does.
+
+
+@dataclass
+class DecodeState:
+    """What a segmented decode carries between segments. The tensors live on
+    the device. `step` and `prompt_end` are host integers: the step count
+    advances by one per step whatever the device computes, so the host knows
+    it without a read (JAX carries both as device scalars inside its jitted
+    loop), and the cache slot of each step is a host index, as in
+    `generate`."""
+
+    cache: bb.KVCache
+    token: torch.Tensor  # [B] int32, last emitted token
+    done: torch.Tensor  # [B] bool
+    lengths: torch.Tensor  # [B] int32, tokens generated so far (incl. EOS)
+    pad: torch.Tensor  # [B] int32 left-pad amounts
+    step: int  # tokens generated so far
+    prompt_end: int  # Lp
+    generator: Optional[torch.Generator] = None  # the sampling stream
+
+
+@torch.inference_mode()
+def prefill_init(cfg: BackboneConfig, sampling: SamplingConfig, eos_id: int, params,
+                 tokens: torch.Tensor, prompt_lens: torch.Tensor,
+                 generator: Optional[torch.Generator] = None
+                 ) -> Tuple[DecodeState, torch.Tensor]:
+    """Prefill over left-padded prompts [B, Lp] into a cache of
+    round_up(max_context, align) slots, and sample the first token (through
+    the speech head when sampling is constrained to it and it is attached).
+    Returns (state, first token [B] int32)."""
+    B, Lp = tokens.shape
+    dev = tokens.device
+    # a stream is open-ended: "auto" resolves against the whole window
+    cfg = resolve_cfg(cfg, Lp, cfg.max_context - Lp)
+    pad = (Lp - prompt_lens).to(torch.int32)
+    cache = bb.KVCache.create(cfg, B, max_len=round_up(cfg.max_context, _cache_align(cfg)),
+                              device=dev)
+    speech = smp.use_speech_head(cfg, sampling, params)
+    logits, cache = bb.prefill(cfg, params, tokens, prompt_lens, cache, speech_head=speech)
+    first = smp.sample_logits(logits, generator, cfg, sampling, eos_id,
+                              0 < sampling.min_new_tokens, speech=speech)
+    state = DecodeState(cache=cache, token=first, done=first == eos_id,
+                        lengths=torch.ones(B, dtype=torch.int32, device=dev), pad=pad,
+                        step=1, prompt_end=Lp, generator=generator)
+    return state, first
+
+
+@torch.inference_mode()
+def decode_segment(cfg: BackboneConfig, sampling: SamplingConfig, eos_id: int, n_steps: int,
+                   params, state: DecodeState) -> Tuple[DecodeState, torch.Tensor]:
+    """Up to n_steps more tokens -> (state, tokens [B, n_steps] int32), the
+    cache updated in place. No step reads the device: rows that finish keep
+    emitting EOS without growing their length, and steps past a row's
+    real-length cap (max_context, left pad not counted) or past the
+    physical cache emit EOS. The caller checks `state.done` / `lengths`."""
+    B = state.token.shape[0]
+    dev = state.token.device
+    out = torch.full((B, n_steps), eos_id, dtype=torch.int32, device=dev)
+    speech = smp.use_speech_head(cfg, sampling, params)
+    T_phys = state.cache.max_len
+    token, done, lengths = state.token, state.done, state.lengths
+    Lp = state.prompt_end
+    for i in range(n_steps):
+        step = state.step + i  # tokens generated before this one
+        cur_index = Lp + step - 1  # cache slot of the token fed in
+        if cur_index >= T_phys:
+            # the step before had no slot left for its token and emitted EOS
+            # on every row: nothing is left to compute (JAX clamps the write)
+            token = torch.full_like(token, eos_id)
+            continue
+        # real-length cap per row, and the physical one: the token emitted
+        # now is fed next step at slot Lp + step
+        in_ctx = (Lp - state.pad + step) < cfg.max_context
+        if Lp + step >= T_phys:
+            in_ctx = torch.zeros_like(in_ctx)
+        logits, _ = bb.decode_step(cfg, params, token, state.cache, cur_index, state.pad,
+                                   trim_logits=False, speech_head=speech)
+        nxt = smp.sample_logits(logits, state.generator, cfg, sampling, eos_id,
+                                step < sampling.min_new_tokens, speech=speech)
+        nxt = torch.where(done | ~in_ctx, eos_id, nxt).to(torch.int32)
+        out[:, i] = nxt
+        lengths = lengths + (~done).to(torch.int32)
+        done = done | (nxt == eos_id)
+        token = nxt
+    state = DecodeState(cache=state.cache, token=token, done=done, lengths=lengths,
+                        pad=state.pad, step=state.step + n_steps, prompt_end=Lp,
+                        generator=state.generator)
+    return state, out

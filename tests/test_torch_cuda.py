@@ -665,3 +665,119 @@ def test_engine_dispatch_never_waits_for_the_device(dev, quantize, kv_dtype):
     eng.step_collect(pending)
     done = {r.rid: r.tokens for r in eng.pop_finished()}
     assert sorted(done) == rids and all(len(t) == 16 for t in done.values())
+
+
+@pytest.fixture()
+def no_tf32():
+    """Full-f32 products and convolutions (cuDNN takes TF32 by default)."""
+    saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    yield
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+
+
+def _tiny_pair(dev, kv_dtype="float32", codec_cfg=None):
+    """The same seeded TINY pipeline on the CPU and on the card."""
+    from neutts_tpu_torch import NeuTTS, config
+    from neutts_tpu_torch.models import codec as cd
+    from neutts_tpu_torch.text.g2p import RuleG2P
+
+    cfg = config.TINY.scaled(kv_dtype=kv_dtype, max_context=224)
+    ccfg = codec_cfg or config.CODEC_TINY
+    params = bb.init_params(cfg, seed=5, device="cpu")
+    cparams = cd.init_params(ccfg, seed=6, device="cpu")
+    scfg = config.SamplingConfig(greedy=True, min_new_tokens=8,
+                                 max_context=224).constrained_to(cfg.layout)
+    return [NeuTTS(cfg, params, ccfg, cparams, g2p=RuleG2P(), watermarker=None, sampling=scfg,
+                   device=d) for d in ("cpu", dev)]
+
+
+@pytest.mark.parametrize("kv_dtype,first_chunk_frames", [("float32", 25), ("int8", 10)])
+def test_tiny_stream_gpu_matches_cpu(dev, no_tf32, kv_dtype, first_chunk_frames):
+    """infer_stream on the card (kernels #1 and #5) yields the chunks of the
+    same stream on the CPU (plain versions): greedy tokens equal, so the
+    same chunk sizes, samples within 1e-4 (f32 summation order; int8 KV
+    within one quantization step of the same tokens)."""
+    import dataclasses
+
+    import numpy as np
+
+    cpu, gpu = _tiny_pair(dev, kv_dtype)
+    ref = np.random.default_rng(0).integers(0, 64, 24).astype(np.int32)
+    for t in (cpu, gpu):
+        t.streaming = dataclasses.replace(t.streaming, first_chunk_frames=first_chunk_frames)
+    want = list(cpu.infer_stream("Hello there, this is a test.", ref, "So I'm live."))
+    _build.reset_launches()
+    got = list(gpu.infer_stream("Hello there, this is a test.", ref, "So I'm live."))
+    assert _build.launches["prefill_attention"] > 0
+    assert _build.launches["decode_attention_" + ("int8" if kv_dtype == "int8" else "bf16")] > 0
+    assert [g.shape for g in got] == [w.shape for w in want] and len(got) >= 2
+    for g, w in zip(got, want):
+        assert g.dtype == np.float32
+        np.testing.assert_allclose(g, w, atol=1e-4)
+    assert gpu.last_stats["n_codes"] == cpu.last_stats["n_codes"]
+
+
+@pytest.mark.parametrize("kv_dtype", ["float32", "int8", "int4"])
+def test_decode_segment_never_waits_for_the_device(dev, kv_dtype):
+    """A segment of 16 steps queues its work with no host synchronisation:
+    the stream reads `done` once per segment, never inside one."""
+    from neutts_tpu_torch import config
+    from neutts_tpu_torch.runtime import decode as dec
+
+    cfg = config.TINY.scaled(kv_dtype=kv_dtype, max_context=224)
+    lay = cfg.layout
+    params = bb.init_params(cfg, seed=3, device=dev)
+    scfg = config.SamplingConfig(min_new_tokens=16, max_context=224).constrained_to(lay)
+    toks, lens = dec.pad_prompts([[3, 1, 4, 1, 5], [9, 2]], pad_id=0, bucket=16, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    state, _ = dec.prefill_init(cfg, scfg, lay.speech_gen_end, params, toks, lens, gen)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        state, seg = dec.decode_segment(cfg, scfg, lay.speech_gen_end, 16, params, state)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert seg.shape == (2, 16) and not bool(state.done.any())
+
+
+@pytest.mark.parametrize("composition", ["tiny", "small_real"])
+def test_encoder_gpu_matches_cpu(dev, no_tf32, composition):
+    """encode_reference(samples/demo.wav) on the card equals the CPU's codes,
+    with the latent within 1e-4 of its scale: CODEC_TINY's from-scratch
+    encoder, and the real composition (XCodec2 stack, w2v-BERT tower, conv
+    SemanticEncoder) at a small width."""
+    from pathlib import Path
+
+    import numpy as np
+
+    from neutts_tpu_torch import config
+    from neutts_tpu_torch.audio import io as audio_io
+    from neutts_tpu_torch.audio import mel
+    from neutts_tpu_torch.models import codec as cd
+
+    ccfg = config.CODEC_TINY
+    if composition == "small_real":
+        ccfg = ccfg.scaled(
+            enc_family="codecenc",
+            codecenc=config.CodecEncConfig(ngf=4, up_ratios=(2, 2, 4, 4, 5), dilations=(1, 3),
+                                           out_channels=16, rnn_layers=1),
+            semantic=config.SemanticConfig(hidden=16, n_layers=2, n_heads=2, intermediate=32,
+                                           conv_kernel=5, left_max=4, right_max=2,
+                                           output_layer=1),
+            sem_proj_dim=8, sem_encoder="conv")
+    cpu, gpu = _tiny_pair(dev, codec_cfg=ccfg)
+    wav_path = Path(__file__).resolve().parent.parent / "samples" / "demo.wav"
+    want = cpu.encode_reference(wav_path)
+    got = gpu.encode_reference(wav_path)
+    assert got.dtype == np.int32 and got.shape == (100,)
+    np.testing.assert_array_equal(got, want)
+    wav = audio_io.load_for_encoding(wav_path)
+    sem = None
+    if ccfg.semantic is not None:
+        sem = torch.as_tensor(mel.semantic_features(np.pad(wav, (160, 160))))[None]
+    zc = cd.encode_latent(ccfg, cpu.codec_params, torch.as_tensor(wav)[None], sem)
+    zg = cd.encode_latent(ccfg, gpu.codec_params, torch.as_tensor(wav, device=dev)[None],
+                          None if sem is None else sem.to(dev))
+    scale = max(1.0, float(zc.abs().max()))
+    torch.testing.assert_close(zg.cpu(), zc, rtol=0, atol=1e-4 * scale)

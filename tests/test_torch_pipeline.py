@@ -82,14 +82,6 @@ def test_generated_tokens_match(pair, ref_codes):
     np.testing.assert_array_equal(tr.lengths.numpy(), np.asarray(jr.lengths))
 
 
-def test_not_yet_ported_entry_points_raise(pair, ref_codes):
-    _, t = pair
-    with pytest.raises(NotImplementedError, match="later slice"):
-        t.infer_stream(TEXTS[0], ref_codes, REF_TEXT)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        t.encode_reference("x.wav")
-
-
 def test_infer_accepts_torch_tensor_codes(pair, ref_codes):
     _, t = pair
     a = t._build_prompt(TEXTS[1], torch.from_numpy(ref_codes), REF_TEXT)
