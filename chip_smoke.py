@@ -70,7 +70,21 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
  15. MultiChipEngine over every visible card, W8A8 + int8 KV, 32 slots, 48
      requests: each replica's tokens equal to those of a lone Engine with
      its seed on its card, fed the requests routed to it; tokens/s, and the
-     launches of #2-#7.
+     launches of #2-#7;
+ 16. load published formats at full Air width: seeded bf16 weights
+     written as an HF directory (BF16 model.safetensors + config.json) and
+     as GGUF Q8_0 and Q4_0 files with full-vocabulary tokenizer metadata;
+     the HF directory through `python -m neutts_tpu_torch.models.convert_cli`,
+     its checkpoint through load_pipeline into NeuTTS(quantize="int8",
+     int8 KV): W8A8 infer_batch over phase 4's prompts (decode capped by
+     max_context 512) giving the tokens of the same weights held in memory,
+     with #1 int8, #5, #6 and #7 launched; the Q8_0 file through
+     convert.from_gguf onto the card, every weight within half its block's
+     Q8_0 step of the original, then W8A8 infer_batch; the Q4_0 file in
+     bf16 and one infer through the GGUF's own tokenizer (#1 bf16 and #5
+     launched), whose ids equal the layout's and whose prompt equals
+     ByteLevelBPE.from_gguf_metadata's. File sizes, write, convert and load
+     seconds, peak host RSS and device memory.
 Each main path runs with the launch counts set to 0 just before it and read
 just after. Before the last two lines: the report, the nvidia-smi card line
 and the JSON object {"kernels": [...]}; the last line is {"ok": true,
@@ -131,6 +145,230 @@ def sass_functions(lib) -> dict:
         elif cur is not None:
             funcs[cur].append(line)
     return funcs
+
+
+def q8_0_error_ratio(orig, loaded) -> float:
+    """Largest |loaded - orig| over its bound, blocks of 32 along the last
+    axis (the GGUF row): half the block's Q8_0 step d = f16(amax / 127)
+    (x (1 + 2^-10) for the f32 division that picks q), plus the bf16 load's
+    rounding of q * d (2^-8 |loaded|). At most 1 when every weight is within
+    half a step; that holds while d stays a normal f16 (block absmax >=
+    7.8e-3, as for every block of these weights), else the subnormal scale's
+    rounding can push q past 127."""
+    import torch
+
+    x = orig.float().reshape(-1, 32)
+    y = loaded.float().reshape(-1, 32)
+    d = (x.abs().amax(dim=1, keepdim=True) / 127.0).half().float()
+    bound = 0.5 * d * (1 + 2**-10) + 2**-8 * y.abs()
+    err = (y - x).abs()
+    over = torch.where(bound > 0, err / bound.clamp_min(1e-30),
+                       torch.where(err > 0, float("inf"), 0.0))
+    return float(over.max())
+
+
+def rss_now_gb(pid) -> float | None:
+    """A process's resident set now (VmRSS) in GB; None where /proc does not
+    give it."""
+    try:
+        for line in Path(f"/proc/{pid}/status").read_text().splitlines():
+            if line.startswith("VmRSS:"):
+                return int(line.split()[1]) * 1024 / 1e9
+    except OSError:
+        pass
+    return None
+
+
+def run_watching_rss(cmd, tmp: Path) -> tuple:
+    """Run `cmd` to its end -> (return code, output tail, its largest RSS in
+    GB, sampled from /proc every 20 ms, or None). Not getrusage: its maxrss
+    carries this process's peak into a child it spawns (vfork + exec)."""
+    log = tmp / "cmd.log"
+    with open(log, "w") as out:
+        proc = subprocess.Popen(cmd, cwd=ROOT, stdout=out, stderr=subprocess.STDOUT)
+        peak = None
+        while proc.poll() is None:
+            now = rss_now_gb(proc.pid)
+            if now is not None:
+                peak = max(peak or 0.0, now)
+            time.sleep(0.02)
+    return proc.returncode, log.read_text()[-4000:], peak
+
+
+def phase_converters(dev, run_path, texts, refs, ref_text) -> tuple:
+    """Phase 16 (the module docstring): -> (report entry, the run_path
+    results of the three converted paths)."""
+    import resource
+    import shutil
+    import tempfile
+    import types
+
+    import numpy as np
+    import torch
+
+    from neutts_tpu_torch import NeuTTS, config
+    from neutts_tpu_torch.models import backbone as bb
+    from neutts_tpu_torch.models import checkpoint as ckpt
+    from neutts_tpu_torch.models import codec as cd
+    from neutts_tpu_torch.models import convert
+    from neutts_tpu_torch.text import prompt as prompt_lib
+    from neutts_tpu_torch.text.bpe import ByteLevelBPE
+    from neutts_tpu_torch.text.tokenizer import HFTokenizer
+
+    air, max_ctx = config.AIR, 512
+    layout = air.layout
+    sampling = config.SamplingConfig(max_context=max_ctx).constrained_to(layout)
+    run_cfg = dict(kv_dtype="int8", max_context=max_ctx)
+    maxrss_gb = lambda: resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1e6  # noqa: E731
+    info: dict = {"max_context": max_ctx, "files": {}, "rss_process_peak_before_gb": maxrss_gb()}
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_formats_"))
+    try:
+        # --- the original weights, and the three files ---------------------------
+        t0 = time.perf_counter()
+        params = bb.init_params(air, seed=16, device="cpu")
+        params["embed"][air.vocab_size:] = 0  # from_hf / from_gguf re-pad with zeros
+        gen = torch.Generator().manual_seed(16)
+        for b in ("bq", "bk", "bv"):
+            b_ = params["layers"][b]
+            b_.copy_(0.02 * torch.randn(b_.shape, generator=gen))
+        codec_params = cd.init_params(config.CODEC, seed=0, device="cpu")  # convert_cli's codec
+        info["init_s"] = time.perf_counter() - t0
+        hf_dir = tmp / "hf"
+        t0 = time.perf_counter()
+        convert.write_hf_dir(hf_dir, air, params)
+        info["files"]["hf_bf16"] = {"bytes": (hf_dir / "model.safetensors").stat().st_size,
+                                    "write_s": time.perf_counter() - t0}
+        meta = convert.gguf_metadata(air)
+        gg = {k: v.float().contiguous().numpy() for k, v in
+              convert.hf_to_gguf_tensors(air, convert.to_hf_tensors(air, params)).items()}
+        for qt in ("Q8_0", "Q4_0"):
+            t0 = time.perf_counter()
+            convert.write_gguf(tmp / f"air-{qt}.gguf", meta, gg,
+                               quant={k: qt for k, v in gg.items() if v.ndim == 2})
+            info["files"][qt] = {"bytes": (tmp / f"air-{qt}.gguf").stat().st_size,
+                                 "write_s": time.perf_counter() - t0}
+        del gg
+        gc.collect()
+        for k, f in info["files"].items():
+            print(f"[16] wrote {k}: {f['bytes'] / 1e9:.3f} GB in {f['write_s']:.1f} s")
+
+        # --- HF BF16 -> convert_cli -> load_pipeline, W8A8 --------------------------
+        ckpt_dir = tmp / "ckpt"
+        t0 = time.perf_counter()
+        rc, out, cli_rss = run_watching_rss([sys.executable, "-m",
+                                             "neutts_tpu_torch.models.convert_cli",
+                                             "--hf", str(hf_dir), "--out", str(ckpt_dir)], tmp)
+        require(rc == 0, f"convert_cli failed: {out}")
+        info["files"]["hf_bf16"]["convert_s"] = time.perf_counter() - t0
+        info["rss_convert_cli_gb"] = cli_rss
+        info["checkpoint_bytes"] = sum(f.stat().st_size for f in ckpt_dir.iterdir())
+        # device peak of the phase: each run_path resets the counter, so the
+        # peak since the last reset is read before each run and at the end
+        peaks = []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        bcfg, bparams, ccfg, cparams = ckpt.load_pipeline(ckpt_dir, dev)
+        tts = NeuTTS(bcfg.scaled(**run_cfg), bparams, ccfg, cparams, device=dev,
+                     quantize="int8", sampling=sampling)
+        del bparams, cparams
+        torch.cuda.synchronize()
+        info["files"]["hf_bf16"]["load_s"] = time.perf_counter() - t0
+        require(dataclasses.replace(tts.backbone_cfg, name=air.name) == air.scaled(**run_cfg),
+                f"converted config {tts.backbone_cfg} is not Air's")
+        peaks.append(torch.cuda.max_memory_allocated() / 1e9)
+        hf_run = run_path("16 hf", tts, 8)
+        for k in ("decode_attention_int8", "prefill_attention", "fused_qkv", "fused_mlp"):
+            require(hf_run["launches"][k] > 0, f"converted W8A8 path never launched {k}")
+        converted_codes = tts.last_stats["codes"]
+        del tts
+        torch.cuda.empty_cache()
+        base = NeuTTS(air.scaled(**run_cfg), params, config.CODEC, codec_params, device=dev,
+                      quantize="int8", sampling=sampling)
+        run_path("16 in-memory", base, 8)
+        same = base.last_stats["codes"] == converted_codes
+        print(f"[16] HF BF16 -> convert_cli -> load_pipeline: tokens equal to the in-memory "
+              f"weights' {same} ({sum(map(len, converted_codes))} codes)")
+        require(same, "tokens of the converted HF checkpoint differ from the in-memory weights'")
+        del base
+        torch.cuda.empty_cache()
+
+        # --- GGUF Q8_0 onto the card: within half a step, then W8A8 --------------
+        t0 = time.perf_counter()
+        qcfg, qparams = convert.from_gguf(tmp / "air-Q8_0.gguf", device=dev)
+        torch.cuda.synchronize()
+        info["files"]["Q8_0"]["load_s"] = time.perf_counter() - t0
+        # GGUF stores rms_norm_eps as f32 (9.99999997e-07 for 1e-6)
+        require(dataclasses.replace(qcfg, name=air.name, rms_norm_eps=air.rms_norm_eps) == air
+                and abs(qcfg.rms_norm_eps - air.rms_norm_eps) <= 1e-6 * 2**-23,
+                f"Q8_0 config {qcfg}")
+        V = air.vocab_size
+        worst = q8_0_error_ratio(params["embed"][:V].to(dev), qparams["embed"][:V])
+        for k, w in params["layers"].items():
+            if w.ndim == 3:  # the projections [L, in, out]; GGUF rows are [out, in]
+                worst = max(worst, q8_0_error_ratio(w.to(dev).mT, qparams["layers"][k].mT))
+        require(not bool(qparams["embed"][V:].any()), "Q8_0 embedding pad rows not zero")
+        info["q8_0_worst_error_over_bound"] = worst
+        print(f"[16] Q8_0: worst |w - w0| over its bound (half a step + bf16 rounding): "
+              f"{worst:.4f} (must be <= 1)")
+        require(worst <= 1.0, f"a Q8_0 weight lies {worst:.3f}x beyond half a step")
+        tts = NeuTTS(qcfg.scaled(**run_cfg), qparams, config.CODEC, codec_params, device=dev,
+                     quantize="int8", sampling=sampling)
+        del qparams
+        peaks.append(torch.cuda.max_memory_allocated() / 1e9)
+        q8_run = run_path("16 q8_0", tts, 8)
+        for k in ("decode_attention_int8", "prefill_attention", "fused_qkv", "fused_mlp"):
+            require(q8_run["launches"][k] > 0, f"Q8_0 W8A8 path never launched {k}")
+        del tts
+        torch.cuda.empty_cache()
+
+        # --- GGUF Q4_0 in bf16 and its own tokenizer: one infer -------------------
+        t0 = time.perf_counter()
+        q4cfg, q4params = convert.from_gguf(tmp / "air-Q4_0.gguf", device=dev)
+        torch.cuda.synchronize()
+        info["files"]["Q4_0"]["load_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        tok = HFTokenizer(str(tmp / "air-Q4_0.gguf"))
+        info["files"]["Q4_0"]["tokenizer_s"] = time.perf_counter() - t0
+        require(tok.layout == layout, f"GGUF tokenizer layout {tok.layout} != {layout}")
+        ids = {"<|speech_0|>": layout.speech_base, "<|speech_65535|>": layout.vocab_size - 1}
+        ids.update({n: layout.n_text_tokens + i
+                    for i, n in enumerate(config.SPECIAL_TOKEN_NAMES)})
+        for name, want in ids.items():
+            require(tok.convert_token_to_id(name) == want, f"GGUF tokenizer id of {name}")
+        bpe = ByteLevelBPE.from_gguf_metadata(meta)
+        plain = types.SimpleNamespace(layout=layout, encode=bpe.encode,
+                                      convert_token_to_id=bpe.convert_token_to_id)
+        tts = NeuTTS(q4cfg.scaled(max_context=max_ctx), q4params, config.CODEC, codec_params,
+                     device=dev, tokenizer=tok, sampling=sampling)
+        del q4params
+        p_tok = prompt_lib.build_prompt_ids(tok, tts.g2p, refs[0], ref_text, texts[0])
+        p_ref = prompt_lib.build_prompt_ids(plain, tts.g2p, refs[0], ref_text, texts[0])
+        require(p_tok == p_ref, "the GGUF tokenizer's prompt differs from from_gguf_metadata's")
+        peaks.append(torch.cuda.max_memory_allocated() / 1e9)
+        q4_run = run_path("16 q4_0", tts, 1)
+        for k in ("decode_attention_bf16", "prefill_attention"):
+            require(q4_run["launches"][k] > 0, f"Q4_0 bf16 path never launched {k}")
+        print(f"[16] Q4_0 GGUF tokenizer: layout and special ids equal Air's, a {len(p_tok)}-id "
+              f"prompt equal to from_gguf_metadata's")
+        del tts
+        info["peak_device_gb"] = max(peaks + [r["peak_mem_gb"] for r in (hf_run, q8_run, q4_run)]
+                                     + [torch.cuda.max_memory_allocated() / 1e9])
+        info["rss_process_peak_after_gb"] = maxrss_gb()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    for k, f in info["files"].items():
+        print(f"[16] {k}: " + ", ".join(f"{a} {v / 1e9:.3f} GB" if a == "bytes" else
+                                         f"{a} {v:.1f}" for a, v in f.items()))
+    cli = info["rss_convert_cli_gb"]
+    print(f"[16] host RSS peak of the process (getrusage): {info['rss_process_peak_before_gb']:.1f}"
+          f" GB before the phase, {info['rss_process_peak_after_gb']:.1f} GB after; convert_cli's "
+          f"largest sampled RSS {'not measured' if cli is None else f'{cli:.1f} GB'}; device "
+          f"peak over the phase's loads and runs "
+          f"{info['peak_device_gb']:.1f} GB")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return info, (hf_run, q8_run, q4_run)
 
 
 def main() -> int:
@@ -1367,6 +1605,12 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    # --- 16. load published formats at Air width --------------------------------------
+    conv, conv_paths = phase_converters(dev, run_path, texts, refs, ref_text)
+    report["converters"] = conv
+    report["phases"]["converters"] = {"hf_w8a8": conv_paths[0], "q8_0_w8a8": conv_paths[1],
+                                      "q4_0_bf16": conv_paths[2]}
+
     # --- 11, continued: one steady stream chunk under torch.profiler ----------------
     # last in the script (a profiling session slows the process's later
     # launches): the stream's model again (the same seed), a 25-step segment
@@ -1398,7 +1642,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # --- report ------------------------------------------------------------------------
-    paths = (w8, d16, s8, s16, w4, s4, stream, mc)
+    paths = (w8, d16, s8, s16, w4, s4, stream, mc, *conv_paths)
     for key, r in results.items():
         # a shape row (name@shape) counts its kernel's launches at every shape
         r["launches"] = sum(ph["launches"][key.split("@")[0]] for ph in paths)

@@ -94,7 +94,10 @@ def quantize_weight(w: torch.Tensor) -> Dict[str, torch.Tensor]:
     """w [..., D, F] -> {"q": int8 [..., D, F], "s": f32 [..., F]}, symmetric
     per-output-channel scales."""
     wf = w.float()
-    s = torch.clamp(wf.abs().amax(dim=-2), min=1e-8) / 127.0
+    # a tensor divisor: CUDA turns division by a Python number into a product
+    # with its reciprocal, which rounds unlike the CPU's division, and the
+    # int8 weights must not depend on the device that made them
+    s = torch.clamp(wf.abs().amax(dim=-2), min=1e-8) / torch.tensor(127.0, device=wf.device)
     q = torch.clamp(torch.round(wf / s[..., None, :]), -127, 127).to(torch.int8)
     return {"q": q, "s": s}
 

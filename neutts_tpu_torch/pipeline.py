@@ -119,7 +119,7 @@ class NeuTTS:
     @classmethod
     def from_checkpoint(cls, path: str | Path, device="cuda", **kw) -> "NeuTTS":
         """Load a checkpoint directory written by either package's
-        `save_pipeline`."""
+        `save_pipeline` (or by `models.convert_cli`)."""
         dev = resolve_device(device)
         backbone_cfg, backbone_params, codec_cfg, codec_params = ckpt.load_pipeline(path, dev)
         return cls(backbone_cfg, backbone_params, codec_cfg, codec_params, device=dev, **kw)
@@ -191,16 +191,17 @@ class NeuTTS:
         result = dec.generate(self.backbone_cfg, self.sampling, self._eos, max_new,
                               self.backbone_params, toks, lens, self._generator)
         t0 = time.perf_counter()
-        wavs, n_codes = [], []
+        wavs, all_codes = [], []
         for i in range(len(prompts)):
             codes = extract_speech_codes(dec.extract(result, i, self._eos),
                                          self.tokenizer.layout)
-            n_codes.append(len(codes))
+            all_codes.append(codes)
             wavs.append(self._watermark(self._vocode(codes)))
         self.last_stats = {
             "bucket": bucket,
             "steps": result.steps,
-            "n_codes": n_codes,
+            "codes": all_codes,
+            "n_codes": [len(c) for c in all_codes],
             "prefill_s": result.prefill_s,
             "decode_s": result.decode_s,
             "vocode_s": time.perf_counter() - t0,

@@ -125,10 +125,9 @@ class ByteLevelBPE:
 
         token_type: 1 = normal, anything else (control/user-defined — the 6
         specials + speech tokens in NeuTTS GGUFs) becomes an added token."""
-        raise NotImplementedError(
-            "reading GGUF files comes with the checkpoint converters, a later "
-            "slice of the PyTorch port; use tokenizer.json or "
-            "from_gguf_metadata")
+        from neutts_tpu_torch.models.convert import read_gguf_metadata
+
+        return cls.from_gguf_metadata(read_gguf_metadata(path))
 
     @classmethod
     def from_gguf_metadata(cls, meta: Dict) -> "ByteLevelBPE":

@@ -827,3 +827,48 @@ def test_kernel_refuses_autograd_on_the_card(dev):
     with torch.no_grad():
         attn.prefill_attention(q, k, k, pads)
     assert _build.launches["prefill_attention"] == before + 1
+
+
+@pytest.mark.parametrize("source", ["hf_bf16", "gguf_q8_0"])
+def test_converted_weights_on_the_card_equal_the_cpus(dev, tmp_path, source):
+    """A TINY checkpoint converted onto the card (from_hf of a BF16 HF file,
+    from_gguf of a Q8_0 GGUF) equals the same conversion on the CPU bit for
+    bit, and so do its W8A8 weights (quantize_params on each device); the
+    converted model's prefill on the card launches #5, #6 and #7."""
+    from neutts_tpu_torch import config
+    from neutts_tpu_torch.models import checkpoint as ckpt
+    from neutts_tpu_torch.models import convert
+
+    cfg = config.TINY.scaled(vocab_size=320 + 6 + 65_536, dtype="bfloat16")
+    params = bb.init_params(cfg, seed=1, device="cpu")
+    if source == "hf_bf16":
+        convert.write_hf_dir(tmp_path, cfg, params)
+        load = lambda d: convert.from_hf(tmp_path, device=d)  # noqa: E731
+    else:
+        gg = {k: v.float().contiguous().numpy() for k, v in
+              convert.hf_to_gguf_tensors(cfg, convert.to_hf_tensors(cfg, params)).items()}
+        convert.write_gguf(tmp_path / "m.gguf", convert.gguf_metadata(cfg), gg,
+                           quant={k: "Q8_0" for k, v in gg.items() if v.ndim == 2})
+        load = lambda d: convert.from_gguf(tmp_path / "m.gguf", device=d)  # noqa: E731
+    ccfg, cpu = load("cpu")
+    gcfg, gpu = load(dev)
+    assert gcfg == ccfg and gpu["embed"].device.type == dev.type
+    for g, c in zip(ckpt.tree_leaves(gpu), ckpt.tree_leaves(cpu)):
+        assert g.dtype == c.dtype == torch.bfloat16
+        assert torch.equal(g.cpu().view(torch.int16), c.view(torch.int16))
+    qg, qc = bb.quantize_params(gpu), bb.quantize_params(cpu)
+    for name in ("wq", "wqkv", "w_gate", "w_down"):
+        for k in ("q", "s"):
+            g, c = qg["layers"][name][k].cpu(), qc["layers"][name][k]
+            assert torch.equal(g, c), (name, k, int((g != c).sum()))
+    for g, c in zip(ckpt.tree_leaves(qg), ckpt.tree_leaves(qc)):
+        assert torch.equal(g.cpu(), c)
+    _build.reset_launches()
+    toks = (torch.arange(4 * 512, device=dev) * 7 % cfg.vocab_size).to(torch.int32).view(4, 512)
+    cache = bb.KVCache.create(gcfg.scaled(kv_dtype="int8"), 4, max_len=512, device=dev)
+    logits, _ = bb.prefill(gcfg.scaled(kv_dtype="int8"), qg, toks,
+                           torch.full((4,), 512, dtype=torch.int32, device=dev), cache)
+    torch.cuda.synchronize()
+    assert torch.isfinite(logits.float()).all()
+    for k in ("prefill_attention", "fused_qkv", "fused_mlp"):  # M 2048 = FUSED_MIN_M
+        assert _build.launches[k] > 0, k
