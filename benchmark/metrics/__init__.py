@@ -1,0 +1,1 @@
+"""Metric readers, one file per metric, found by the metric's name."""
