@@ -1,0 +1,13 @@
+"""Share of the serving segments that replayed a captured CUDA graph: 100 x
+the program's `decode.replay` spans over its `batching.decode_steps` spans in
+the traced sub-window (`harness/program.py`); the rest ran eagerly or were
+captured. None without `batching.decode_steps` spans."""
+
+from benchmark.harness import program
+
+
+def read(run):
+    segments = len(program.named(run, "batching.decode_steps"))
+    if not segments:
+        return None
+    return 100.0 * len(program.named(run, "decode.replay")) / segments

@@ -133,7 +133,9 @@ def _split_workspace(device, stream: int, B: int, K: int, G: int, D: int, nparts
     K, G, D, partials per row and head): decode attention (#1, NSPLIT
     partials) and staged decode (#2, NSPLIT + 1) share it at equal keys.
     That is safe because each launch leaves the counters at 0 and launches
-    on one stream run in order."""
+    on one stream run in order. A CUDA graph bakes in the workspace of the
+    stream it was captured on, so it is replayed on that stream alone
+    (`runtime/batching.py` `_capture_stream`)."""
     key = (device.index, stream, B, K, G, D, nparts)
     ws = _split_ws.get(key)
     if ws is None:

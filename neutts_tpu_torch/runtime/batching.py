@@ -29,19 +29,34 @@ State lives on the device between calls. The KV cache is updated in place;
 the small per-slot tensors (token, lens, pad, prompt_lens, active) are
 replaced by new tensors, never written in place, so a tensor read from the
 state stays valid after the next call. Nothing here reads a value back to
-the host: a whole segment is queued without a synchronisation. Each step of
-a segment is a `decode.step` span (`neutts_tpu_torch.utils`).
+the host: a whole segment is queued without a synchronisation.
+
+On a CUDA device a staged segment is ONE CUDA graph launch: the first call
+for a state and step count runs the segment eagerly, then captures it
+(`_SegmentGraph`: static per-slot buffers, copied in before each replay and
+cloned out after it); every later call replays the graph. First calls,
+captures and replays run on one side stream per device, ordered after the
+caller's stream's queued work and before its later work. The segment's
+host ints (the staging column, the layer, n_steps, the cache length) are
+the same in every segment, and all that changes lives on the device.
+
+Spans (`neutts_tpu_torch.utils`): each eager step is a `decode.step`; a
+replay is one `decode.replay`, a first call's run and capture one
+`decode.capture` (both with attribute `steps`); the captured body records
+none.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import Tuple
+import contextlib
+import dataclasses
+from typing import Dict, Tuple
 
 import torch
 
 from neutts_tpu_torch.config import BackboneConfig, SamplingConfig, round_up
 from neutts_tpu_torch.models import backbone as bb
+from neutts_tpu_torch.ops import _build
 from neutts_tpu_torch.ops import attention as attn_ops
 from neutts_tpu_torch.ops import sampling as smp
 from neutts_tpu_torch.runtime.decode import PROMPT_BUCKETS
@@ -71,7 +86,7 @@ def segment_align(cache: bb.KVCache) -> int:
     return SEGMENT_ALIGN_INT4 if cache.int4 else SEGMENT_ALIGN
 
 
-@dataclass
+@dataclasses.dataclass
 class SlotState:
     cache: bb.KVCache  # [L, B, T, K*D] x2 (+ scales; int4: packed, see bb.KVCache)
     token: torch.Tensor  # [B] int32 next input token per slot
@@ -80,6 +95,9 @@ class SlotState:
     prompt_lens: torch.Tensor  # [B] int32 padded prompt portion (min_new bookkeeping)
     active: torch.Tensor  # [B] bool decoding (not empty, not finished)
     generator: torch.Generator  # sampling noise (the JAX state's `key`)
+    # captured staged segments by step count (CUDA devices; see `_SegmentGraph`)
+    graphs: Dict[int, "_SegmentGraph"] = dataclasses.field(default_factory=dict, repr=False,
+                                                           compare=False)
 
     @staticmethod
     def create(cfg: BackboneConfig, n_slots: int, device, seed: int = 0) -> "SlotState":
@@ -196,12 +214,16 @@ def decode_steps(cfg: BackboneConfig, sampling: SamplingConfig, eos_id: int, n_s
     """Advance every active slot n_steps tokens. Returns (state, tokens
     [B, n_steps] int32). Entries of inactive slots and post-EOS steps are
     `eos_id`. The first token of a fresh admission comes from
-    `prefill_slots` (state.token); the engine records it at admission."""
+    `prefill_slots` (state.token); the engine records it at admission. A
+    staged segment on a CUDA device replays the state's captured graph for
+    n_steps (`_SegmentGraph`); on the CPU it runs eagerly."""
     if state.cache.quantized:
         align = segment_align(state.cache)
         if n_steps % align or not 0 < n_steps <= attn_ops.SEG_PAD:
             raise ValueError(f"staged segments take a multiple of {align} steps up to "
                              f"SEG_PAD={attn_ops.SEG_PAD}, got {n_steps}")
+        if state.token.is_cuda:
+            return _decode_steps_graphed(cfg, sampling, eos_id, n_steps, params, state)
         return _decode_steps_staged(cfg, sampling, eos_id, n_steps, params, state)
     return _decode_steps_scatter(cfg, sampling, eos_id, n_steps, params, state)
 
@@ -219,11 +241,21 @@ def _step_head(cfg, sampling, eos_id, params, state, h, lens_new, active, lens, 
 
 @torch.inference_mode()
 def _decode_steps_staged(cfg, sampling, eos_id, n_steps, params, state):
-    """Segment-staged decode (int8 or int4 cache): staging writes at column
-    i, the staged attention kernel, one reconcile at segment end. An int4
-    cache stages unpacked int4 values (`quantize_kv4`) and leaves its prev
-    registers untouched: they belong to the direct-write path, and the
-    even segment bases make every reconciled byte a complete pair."""
+    """Segment-staged decode (int8 or int4 cache), eagerly: the oracle of
+    the captured segment and the CPU's path."""
+    outs, state.token, state.lens, state.active = _staged_segment(
+        cfg, sampling, eos_id, n_steps, params, state, traced=True)
+    return state, outs
+
+
+def _staged_segment(cfg, sampling, eos_id, n_steps, params, state, traced):
+    """One staged segment over `state` (int8 or int4 cache): staging writes
+    at column i, the staged attention kernel, one reconcile at segment end.
+    Writes the cache alone; returns (outs [B, S], token, lens, active), all
+    new tensors. An int4 cache stages unpacked int4 values (`quantize_kv4`)
+    and leaves its prev registers untouched: they belong to the direct-write
+    path, and the even segment bases make every reconciled byte a complete
+    pair. `traced`: each step is a `decode.step` span."""
     cache = state.cache
     quantize = bb.quantize_kv4 if cache.int4 else bb.quantize_kv
     B = state.token.shape[0]
@@ -247,7 +279,7 @@ def _decode_steps_staged(cfg, sampling, eos_id, n_steps, params, state):
                 q, cache.k, cache.v, cache.k_scale, cache.v_scale, stag.k, stag.v,
                 stag.k_scale, stag.v_scale, l, i, base, state.pad)
 
-        with span("decode.step"):
+        with span("decode.step") if traced else contextlib.nullcontext():
             # RoPE position: the real tokens before this one
             h = bb.decode_hidden(cfg, params, layers, token, lens - state.pad, attend)
             token, active, lens = _step_head(cfg, sampling, eos_id, params, state, h,
@@ -258,8 +290,137 @@ def _decode_steps_staged(cfg, sampling, eos_id, n_steps, params, state):
     reconcile = attn_ops.reconcile_segment4 if cache.int4 else attn_ops.reconcile_segment
     reconcile(cache.k, cache.v, cache.k_scale, cache.v_scale, stag.k, stag.v, stag.k_scale,
               stag.v_scale, base, active0)
-    state.token, state.lens, state.active = token, lens, active
-    return state, outs
+    return outs, token, lens, active
+
+
+_SLOT_INPUTS = ("token", "lens", "pad", "prompt_lens", "active")
+_capture_streams: Dict[int, "torch.cuda.Stream"] = {}  # device index -> capture stream
+
+
+def _capture_stream(dev: torch.device) -> "torch.cuda.Stream":
+    """The device's side stream for every graph's first call, capture and
+    replay. A capture must run on a stream other than the default one; the
+    replays run on the capture's stream, so the split-K workspace the graph
+    baked in (`attention._split_workspace`, keyed by stream) is used by
+    launches of that stream alone, in order."""
+    s = _capture_streams.get(dev.index)
+    if s is None:
+        s = _capture_streams[dev.index] = torch.cuda.Stream(dev)
+    return s
+
+
+class _SegmentGraph:
+    """One staged segment of a state (staging allocation, n_steps steps,
+    reconcile) over static per-slot buffers of its own, replayable as one
+    CUDA graph.
+
+    `run` copies a state's per-slot tensors into the buffers, runs the
+    segment and replaces the state's token, lens and active by clones of
+    the results: the state's tensors are never written and no returned
+    tensor aliases a buffer. The body bakes in the state's cache and
+    generator, n_steps, the config, the params, the sampling config and
+    eos_id; `serves` tells whether a call may replay it. `launches` holds
+    the kernel wrappers' launches of one replay (`_build.launches`)."""
+
+    def __init__(self, cfg, sampling, eos_id, n_steps, params, state: SlotState):
+        self.args = (cfg, sampling, eos_id, n_steps, params)
+        self.cache = _cache_tensors(state.cache)
+        self.static = dataclasses.replace(
+            state, graphs={}, **{n: getattr(state, n).clone() for n in _SLOT_INPUTS})
+        self.graph = None
+        self.result = None  # the captured body's (outs, token, lens, active)
+        self.launches: Dict[str, int] = {}
+
+    def serves(self, cfg, sampling, eos_id, params, state: SlotState) -> bool:
+        c, s, e, _, p = self.args
+        return (p is params and c == cfg and s == sampling and e == eos_id
+                and self.static.generator is state.generator
+                and all(a is b for a, b in zip(self.cache, _cache_tensors(state.cache))))
+
+    def body(self, traced: bool = False):
+        """The segment over the static buffers (the captured body)."""
+        return _staged_segment(*self.args, self.static, traced)
+
+    def run(self, state: SlotState, segment) -> Tuple[SlotState, torch.Tensor]:
+        for name in _SLOT_INPUTS:
+            getattr(self.static, name).copy_(getattr(state, name))
+        outs, token, lens, active = segment()
+        state.token, state.lens, state.active = token.clone(), lens.clone(), active.clone()
+        return state, outs.clone()
+
+    def launch(self, state: SlotState, segment) -> Tuple[SlotState, torch.Tensor]:
+        """`run` on the capture stream, after the caller's stream's queued
+        work and before its later work."""
+        dev = state.token.device
+        stream, here = _capture_stream(dev), torch.cuda.current_stream(dev)
+        stream.wait_stream(here)
+        with torch.cuda.stream(stream):
+            state, outs = self.run(state, segment)
+        here.wait_stream(stream)
+        for t in (outs, state.token, state.lens, state.active):
+            t.record_stream(here)
+        return state, outs
+
+    def replay(self):
+        self.graph.replay()
+        for name, n in self.launches.items():
+            _build.launches[name] += n
+        return self.result
+
+    def capture(self, state: SlotState) -> Tuple[SlotState, torch.Tensor]:
+        """The first call: one eager segment on the capture stream, which
+        allocates the split-K workspace and the BLAS handle's workspace
+        outside the graph's pool and is the call's result; then the body's
+        capture. Non-greedy sampling registers the state's generator, so
+        each replay draws fresh noise. The capture launches nothing, so the
+        wrappers' counts of it move to the replays."""
+        state, outs = self.launch(state, lambda: self.body(traced=True))
+        graph = torch.cuda.CUDAGraph()
+        if not self.args[1].greedy:
+            graph.register_generator_state(state.generator)
+        before = dict(_build.launches)
+        with torch.cuda.stream(_capture_stream(state.token.device)):
+            # thread-local: other threads' CUDA calls may go on during the capture
+            graph.capture_begin(capture_error_mode="thread_local")
+            try:
+                self.result = self.body()
+            finally:
+                graph.capture_end()
+        for name, n in _build.launches.items():
+            if n != before[name]:
+                self.launches[name] = n - before[name]
+                _build.launches[name] = before[name]
+        self.graph = graph
+        return state, outs
+
+
+def _cache_tensors(cache: bb.KVCache) -> tuple:
+    return tuple(getattr(cache, f.name) for f in dataclasses.fields(cache))
+
+
+def _graphs_supported(sampling: SamplingConfig) -> bool:
+    """Greedy decoding draws no noise; sampling needs the generator
+    registered with the graph, which this PyTorch may not offer."""
+    return sampling.greedy or hasattr(torch.cuda.CUDAGraph, "register_generator_state")
+
+
+@torch.inference_mode()
+def _decode_steps_graphed(cfg, sampling, eos_id, n_steps, params, state):
+    """A staged segment on a CUDA device: the replay of the state's graph for
+    n_steps, captured on the first call (`_SegmentGraph`)."""
+    if not _graphs_supported(sampling):
+        return _decode_steps_staged(cfg, sampling, eos_id, n_steps, params, state)
+    with torch.cuda.device(state.token.device):
+        seg = state.graphs.pop(n_steps, None)
+        if seg is not None and seg.serves(cfg, sampling, eos_id, params, state):
+            state.graphs[n_steps] = seg
+            with span("decode.replay", steps=n_steps):
+                return seg.launch(state, seg.replay)
+        seg = _SegmentGraph(cfg, sampling, eos_id, n_steps, params, state)
+        with span("decode.capture", steps=n_steps):
+            state, outs = seg.capture(state)
+        state.graphs[n_steps] = seg  # kept once captured
+        return state, outs
 
 
 @torch.inference_mode()

@@ -707,6 +707,82 @@ def test_traced_dispatch_never_waits_and_shares_the_profilers_clock(dev):
         assert sp.start_ns <= e.start_ns() <= e.start_ns() + e.duration_ns() <= sp.end_ns
 
 
+def _graph_admit(cfg, scfg, params, state, prompts, slots, Lp=64):
+    """prefill_slots of `prompts` into `slots` of `state`."""
+    from neutts_tpu_torch.runtime import batching
+
+    dev = state.token.device
+    toks = torch.zeros((len(prompts), Lp), dtype=torch.int32)
+    for j, p in enumerate(prompts):
+        toks[j, Lp - len(p):] = torch.tensor(p)
+    return batching.prefill_slots(
+        cfg, scfg, cfg.layout.speech_gen_end, params, state, toks.to(dev), torch.tensor([len(p) for p in prompts], dtype=torch.int32,
+                                                  device=dev),
+        torch.tensor(slots, dtype=torch.int32, device=dev))
+
+
+@pytest.mark.parametrize("kv_dtype,greedy", [("int8", True), ("int4", True), ("int8", False)])
+def test_segment_graph_matches_eager_staged(dev, kv_dtype, greedy):
+    """W8A8 on the card: `decode_steps` (one capture, then replays of the
+    segment's CUDA graph) against the eager `_decode_steps_staged` over four
+    segments with a retirement and admissions between them: tokens, lens,
+    active, the cache bytes and scales equal. Top-k sampling draws the same
+    noise as the eager path from a registered generator of the same seed.
+    The returned tensors alias none of the graph's buffers; a replay adds
+    the eager segment's launches to `_build.launches`; a second state
+    captures its own graph; one capture serves every later segment."""
+    from neutts_tpu_torch import config
+    from neutts_tpu_torch.runtime import batching
+    from neutts_tpu_torch.utils import TRACER
+
+    cfg = config.TINY.scaled(kv_dtype=kv_dtype)
+    staged = "decode_attention_staged" + ("_int4" if kv_dtype == "int4" else "")
+    lay = cfg.layout
+    eos = lay.speech_gen_end
+    params = bb.quantize_params(bb.init_params(cfg, seed=3, device=dev))
+    scfg = config.SamplingConfig(greedy=greedy, min_new_tokens=4).constrained_to(lay)
+    params = bb.add_speech_head(cfg, params)
+    S = 16
+    prompts = [[lay.speech_base + (7 * i + j) % 60 for j in range(5 + 3 * i)] for i in range(3)]
+    def fresh():
+        state = batching.SlotState.create(cfg, 4, dev, seed=5)
+        return _graph_admit(cfg, scfg, params, state, prompts, [0, 1, 2])
+
+    sA, sB = fresh(), fresh()
+    with TRACER.on() as records:
+        for r in range(4):
+            if r == 2:  # slot 1 retires; slots 1 and 3 take new requests
+                retire = torch.tensor([False, True, False, False], device=dev)
+                sA, sB = (batching.retire_slots(s, retire) for s in (sA, sB))
+                sA, sB = (_graph_admit(cfg, scfg, params, s, [prompts[0][::-1], prompts[2][:4]],
+                                       [1, 3]) for s in (sA, sB))
+            counts = [dict(_build.launches)]
+            sA, outA = batching.decode_steps(cfg, scfg, eos, S, params, sA)
+            counts.append(dict(_build.launches))
+            sB, outB = batching._decode_steps_staged(cfg, scfg, eos, S, params, sB)
+            counts.append(dict(_build.launches))
+            # a replay counts the launches of the eager segment; the capture none
+            ran = [{k: b[k] - a[k] for k in a} for a, b in zip(counts, counts[1:])]
+            assert ran[0] == ran[1] and ran[0][staged] == S * cfg.n_layers, (r, ran)
+            first = outA if r == 0 else first
+            seg = sA.graphs[S]
+            held = {t.data_ptr() for t in (*seg.result,
+                                           *(getattr(seg.static, n) for n in batching._SLOT_INPUTS))}
+            assert not held & {t.data_ptr() for t in (outA, sA.token, sA.lens, sA.active)}
+            torch.cuda.synchronize()
+            assert torch.equal(outA, outB), r
+            for n in ("token", "lens", "active"):
+                assert torch.equal(getattr(sA, n), getattr(sB, n)), (r, n)
+            for f in ("k", "v", "k_scale", "v_scale"):
+                assert torch.equal(getattr(sA.cache, f), getattr(sB.cache, f)), (r, f)
+        names = [rec.name for rec in records]
+        assert names.count("decode.capture") == 1 and names.count("decode.replay") == 3
+        sC, outC = batching.decode_steps(cfg, scfg, eos, S, params, fresh())
+        assert sC.graphs[S] is not sA.graphs[S]
+        assert [rec.name for rec in records].count("decode.capture") == 2
+    assert torch.equal(outC, first)
+
+
 @pytest.fixture()
 def no_tf32():
     """Full-f32 products and convolutions (cuDNN takes TF32 by default)."""

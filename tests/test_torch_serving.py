@@ -298,6 +298,81 @@ def test_staged_decode_matches_scatter_path_int4(params):
                                        c[:, half: half + n // 2].numpy(), rtol=1e-5)
 
 
+def _admit_more(params, cfg, state, prompt, Lp, slot):
+    """prefill_slots of one more prompt into `slot` of `state`."""
+    toks = np.zeros((1, Lp), np.int32)
+    toks[0, Lp - len(prompt):] = prompt
+    return batching.prefill_slots(cfg, config.SamplingConfig(greedy=True, min_new_tokens=1),
+                                  EOS, params, state, torch.from_numpy(toks),
+                                  torch.tensor([len(prompt)], dtype=torch.int32),
+                                  torch.tensor([slot], dtype=torch.int32))
+
+
+@pytest.mark.parametrize("kv_dtype", ["int8", "int4"])
+def test_segment_graph_body_matches_staged_segment(params, kv_dtype):
+    """The body a CUDA graph captures, run here directly on its static
+    buffers with the same copy-in and clone-out, against the eager staged
+    segment over three segments with a retirement and admissions between
+    them: tokens, lens, active and the cache equal; the call's input
+    tensors unchanged, and no returned tensor aliases a static buffer."""
+    cfg = CFG.scaled(kv_dtype=kv_dtype)
+    scfg = config.SamplingConfig(greedy=True, min_new_tokens=1)
+    prompts = [[3, 1, 4, 1, 5], [9, 2, 6], [2, 7, 1, 8, 2, 8]]
+    Lp, S = 16, batching.SEGMENT_ALIGN_INT4 if kv_dtype == "int4" else batching.SEGMENT_ALIGN
+    sA = _admit(params, cfg, prompts, Lp, 4)
+    sB = _admit(params, cfg, prompts, Lp, 4)
+    seg = batching._SegmentGraph(cfg, scfg, EOS, S, params, sA)
+    buffers = {getattr(seg.static, n).data_ptr() for n in batching._SLOT_INPUTS}
+    for r in range(3):
+        if r == 1:  # slot 1 retires; slots 1 and 3 take new requests
+            retire = torch.tensor([False, True, False, False])
+            sA, sB = (batching.retire_slots(s, retire) for s in (sA, sB))
+            for slot, prompt in ((1, [5, 8, 9, 7]), (3, [6, 2])):
+                sA, sB = (_admit_more(params, cfg, s, prompt, Lp, slot) for s in (sA, sB))
+        inputs = {n: getattr(sA, n) for n in batching._SLOT_INPUTS}
+        before = {n: t.clone() for n, t in inputs.items()}
+        held = []  # the body's outputs, which a graph keeps as its result
+
+        def body():
+            held.extend(seg.body())
+            return held
+
+        sA, outA = seg.run(sA, body)
+        sB, outB = batching._decode_steps_staged(cfg, scfg, EOS, S, params, sB)
+        assert torch.equal(outA, outB), r
+        for n in ("token", "lens", "active"):
+            assert torch.equal(getattr(sA, n), getattr(sB, n)), (r, n)
+        for n, t in inputs.items():
+            assert torch.equal(t, before[n]), (r, n)
+        held = buffers | {t.data_ptr() for t in held}
+        assert not held & {t.data_ptr() for t in (outA, sA.token, sA.lens, sA.active)}
+    for f in ("k", "v", "k_scale", "v_scale"):
+        assert torch.equal(getattr(sA.cache, f), getattr(sB.cache, f)), f
+
+
+def test_segment_graph_serves_only_what_it_baked_in(params):
+    """A captured segment replays only for its own cache tensors, generator,
+    params object, config, sampling config and EOS id; the CPU's
+    `decode_steps` stays eager and captures nothing."""
+    cfg = CFG.scaled(kv_dtype="int8")
+    scfg = config.SamplingConfig(greedy=True, min_new_tokens=1)
+    state = _admit(params, cfg, [[3, 1, 4]], 16, 2)
+    seg = batching._SegmentGraph(cfg, scfg, EOS, 8, params, state)
+    assert seg.serves(cfg, scfg, EOS, params, state)
+    other = batching.SlotState.create(cfg, 2, "cpu")
+    assert not seg.serves(cfg, scfg, EOS, params, other)
+    assert not seg.serves(cfg, scfg, EOS, dict(params), state)
+    assert not seg.serves(cfg, config.SamplingConfig(greedy=True, min_new_tokens=2), EOS,
+                          params, state)
+    assert not seg.serves(cfg, scfg, EOS + 1, params, state)
+    assert not seg.serves(cfg.scaled(max_context=cfg.max_context + 128), scfg, EOS, params,
+                          state)
+    state.generator = torch.Generator().manual_seed(1)
+    assert not seg.serves(cfg, scfg, EOS, params, state)
+    state, _ = batching.decode_steps(cfg, scfg, EOS, 8, params, state)
+    assert state.graphs == {}
+
+
 def test_predictive_retirement_caps_frees_at_queue_depth(params):
     """More budget-complete slots than queued requests: only queue-depth
     slots may be freed predictively; the rest retire normally and the empty
