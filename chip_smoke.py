@@ -93,7 +93,25 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      prints its step and the tp 1 logit margin, and fails), each rank's
      launches of #1 and #5 in their f32 modes, and one train step of a
      2-layer Air, B 2 x S 512, whose loss is within 1e-4 of tp 1's. Run
-     before phase 11's profiled chunk, which stays last.
+     before phase 11's profiled chunk, which stays last;
+ 18. LFM2-8B-A1B (`config.LFM2_8B_A1B`: 18 conv and 6 attention layers, 32
+     experts of 1,792, top 4) at its published widths: the grouped expert
+     kernel (`csrc/moe.cu`, built alone) against its plain version at the
+     serving decode shape (256 tokens x top 4) and an admission's (64 x 512
+     x top 4), its ptxas report, ms (events around back-to-back calls) and
+     device ms (as phase 3's; not with --lfm2) beside its bound and the
+     plain version's ms, both shapes as rows of the `kernels` line; then the
+     Engine serving the benchmark's configuration
+     (`benchmark/configs/lfm2-8b-a1b-bf16-int8kv.json`, its seeded weights
+     from `benchmark/harness/lfm2.py`) in bf16 with an int8 KV cache, 128
+     slots, 192 requests of 380-512 prompt tokens (speech-constrained
+     greedy): every request served its budget in the speech codes, the
+     segments replayed from their CUDA graph, the expert kernel's launches
+     in `_build.launches` (counted in the `kernels` line), tokens/s, the
+     expert load, peak memory, and the token gap of four served requests
+     against the plain reference (`benchmark/reference/lfm2.py`), which must
+     be within the configuration's `limits.token_gap`. `python3
+     chip_smoke.py --lfm2` runs phases 1 and 18 alone.
 Each main path runs with the launch counts set to 0 just before it and read
 just after. Before the last two lines: the report, the nvidia-smi card line
 and the JSON object {"kernels": [...]}; the last line is {"ok": true,
@@ -568,6 +586,146 @@ def phase_converters(dev, run_path, texts, refs, ref_text) -> tuple:
     return info, (hf_run, q8_run, q4_run)
 
 
+def phase_lfm2(dev, device_ms=None) -> dict:
+    """[18] LFM2-8B-A1B at its published widths: the expert kernel, then the
+    Engine serving the model (see the module's docstring). `kernel_rows`
+    holds the kernel's rows of the `kernels` line; `device_ms` is phase 3's
+    timer (None: no device ms)."""
+    import numpy as np
+    import torch
+
+    from benchmark.harness import lfm2 as bench_lfm2
+    from neutts_tpu_torch import config
+    from neutts_tpu_torch.ops import _build
+    from neutts_tpu_torch.ops import moe as moe_ops
+    from neutts_tpu_torch.serving import Engine
+    from neutts_tpu_torch.utils import TRACER
+
+    out: dict = {"kernel_rows": {}}
+    t0 = time.perf_counter()
+    _build.library("moe.cu")
+    out["build_s"] = time.perf_counter() - t0
+    for line in (_build.BUILD_DIR / "moe.log").read_text().splitlines():
+        if "registers" in line or "spill" in line or "Compiling entry" in line:
+            print(f"[18] ptxas moe.cu: {line.strip()}")
+    cfg = config.LFM2_8B_A1B.scaled(kv_dtype="int8")
+    E, k, D, Fe = cfg.n_experts, cfg.n_experts_per_tok, cfg.hidden_size, cfg.moe_intermediate_size
+    g = torch.Generator(device=dev).manual_seed(18)
+    wg, wu = (torch.randn((E, D, Fe), generator=g, device=dev).mul_(D ** -0.5).bfloat16()
+              for _ in range(2))
+    wd = torch.randn((E, Fe, D), generator=g, device=dev).mul_(Fe ** -0.5).bfloat16()
+    for label, key, T in (("decode 256 x 4", "moe_experts", 256),
+                          ("admission 64 x 512 x 4", "moe_experts@admission", 64 * 512)):
+        x = torch.randn((T, D), generator=g, device=dev).bfloat16()
+        idx = torch.topk(torch.randn((T, E), generator=g, device=dev), k, dim=-1).indices
+        perm, offsets, counts = moe_ops.sort_pairs(idx, E)
+        y = moe_ops.grouped_swiglu(x, perm, offsets, wg, wu, wd, k)
+        want = moe_ops.grouped_swiglu_plain(x, perm, offsets, wg, wu, wd, k)
+        torch.cuda.synchronize()
+        err = (y - want).abs().max().item()
+        tol = 1e-2 * want.abs().max().item()
+        n = 20 if T == 256 else 5
+        times = {}
+        for name, fn in (("kernel", moe_ops.grouped_swiglu), ("plain", moe_ops.grouped_swiglu_plain)):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            fn(x, perm, offsets, wg, wu, wd, k)
+            ev[0].record()
+            for _ in range(n):
+                fn(x, perm, offsets, wg, wu, wd, k)
+            ev[1].record()
+            torch.cuda.synchronize()
+            times[name] = ev[0].elapsed_time(ev[1]) / n
+        dms = ((None, None) if device_ms is None else
+               device_ms(lambda i: moe_ops.grouped_swiglu(x, perm, offsets, wg, wu, wd, k), n))
+        touched = int((counts > 0).sum())
+        nbytes = touched * 3 * D * Fe * 2 + T * k * 6 * D
+        flops = 2 * 3 * D * Fe * T * k
+        b_ms, by = bound(nbytes, flops, PEAK_BF16)
+        dev_txt = ("" if dms[0] is None else
+                   f" | device {dms[0]:.4f} warm L2, {dms[1]:.4f} L2 flushed")
+        print(f"[18] moe_experts {label}: max_abs_err {err:.3e} (tol {tol:.3e}) | ms "
+              f"{times['kernel']:.4f}{dev_txt} | bound {b_ms:.4f} ({by}, "
+              f"{100 * b_ms / times['kernel']:.1f}% of it) | plain ms {times['plain']:.3f} | rows "
+              f"per expert {int(counts.min())}-{int(counts.max())}")
+        require(err <= tol and bool(torch.isfinite(y).all()), f"moe_experts {label}: error {err}")
+        out[label] = {"max_abs_err": err, "tol": tol, "ms": times["kernel"],
+                      "plain_ms": times["plain"], "bound_ms": b_ms, "bound_by": by}
+        # no pallas_call site stands behind it (the JAX package has no expert layer)
+        out["kernel_rows"][key] = {
+            "name": key, "route": "cuda", "source": "csrc/moe.cu", "replaces": None,
+            "launches": 0, "max_abs_err": err, "tol": tol, "ms": times["kernel"],
+            "plain_ms": times["plain"], "bound_ms": b_ms, "bound_by": by, "library_ms": None,
+            "device_warm_ms": dms[0], "device_ms": dms[1]}
+        del x, y, want
+    del wg, wu, wd
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    # the benchmark's configuration and seeded weights, so that its limit holds
+    c = json.loads((ROOT / "benchmark/configs/lfm2-8b-a1b-bf16-int8kv.json").read_text())
+    cfg, m = bench_lfm2.backbone_config(c), bench_lfm2.sizes(c)
+    lay = cfg.layout
+    params = bench_lfm2.params(m, 18, dev)
+    scfg = config.SamplingConfig(greedy=True, min_new_tokens=129,
+                                 max_context=cfg.max_context).constrained_to(lay)
+    rs = np.random.default_rng(18)
+    prompts = [(lay.speech_base + rs.integers(0, lay.codebook_size, int(n))).tolist()
+               for n in rs.integers(380, 513, 192)]
+    budgets = [int(b) for b in rs.integers(64, 129, 192)]
+    eng = Engine(cfg, params, eos_id=lay.speech_gen_end, n_slots=128, sampling=scfg,
+                 segment_steps=32, device=dev)
+    warm = eng.submit(prompts[0], max_new=40)
+    eng.run()
+    _build.reset_launches()
+    eng.reset_stats()
+    rids = [eng.submit(p, max_new=b) for p, b in zip(prompts, budgets)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with TRACER.on() as records:
+        res = eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    names = [r.name for r in records]
+    launches = dict(_build.launches)
+    ok = all(len(res[r]) == b and all(lay.speech_base <= t < lay.vocab_size for t in res[r])
+             for r, b in zip(rids, budgets))
+    out["serving"] = {"slots": 128, "requests": 192, "tokens": sum(budgets), "wall_s": wall,
+                      "tok_s": sum(budgets) / wall, "launches": launches,
+                      "replays": names.count("decode.replay"),
+                      "segments": names.count("batching.decode_steps"),
+                      "expert_load_peak": eng.stats.get("expert_load_peak"),
+                      "memory_peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
+    sv = out["serving"]
+    print(f"[18] Engine LFM2-8B-A1B bf16, int8 KV, 128 slots: {sv['requests']} requests, "
+          f"{sv['tokens']} tokens in {wall:.1f} s, {sv['tok_s']:.1f} tok/s | all served in the "
+          f"speech codes: {ok} | {sv['replays']} of {sv['segments']} segments replayed | "
+          f"moe_experts launches {launches['moe_experts']} | expert load peak "
+          f"{sv['expert_load_peak']:.1f}% | memory peak {sv['memory_peak_gb']:.2f} GB")
+    require(ok, "LFM2 serving: a request missed its budget or left the speech codes")
+    require(sv["replays"] == sv["segments"] > 0, "LFM2 serving: a segment did not replay")
+    require(launches["moe_experts"] > 0 and launches["prefill_attention"] > 0
+            and launches["decode_attention_staged"] > 0, "LFM2 serving: a kernel never ran")
+    del eng, warm
+    gc.collect()
+    torch.cuda.empty_cache()
+    from benchmark.reference.lfm2 import token_gaps
+
+    gaps = token_gaps(m, params, [(prompts[i], res[rids[i]]) for i in range(4)],
+                      {"weights_mode": "bf16", "act": None, "kv": "int8"}, lay.speech_base,
+                      lay.vocab_size)
+    out["token_gap"] = gaps
+    limit = c["limits"]["token_gap"]
+    print(f"[18] token gap of 4 served requests against benchmark/reference/lfm2.py: "
+          f"{gaps['token_gap']:.4f} over {gaps['tokens']} tokens (limit {limit})")
+    require(gaps["token_gap"] <= limit, f"LFM2 serving: token gap {gaps['token_gap']} over the "
+            f"configuration's limit {limit}")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -598,6 +756,19 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     report["gpu"] = smi
+
+    if sys.argv[1:2] == ["--lfm2"]:
+        lf = report["phases"]["lfm2"] = phase_lfm2(dev)
+        rows = lf.pop("kernel_rows")
+        for r in rows.values():
+            r["launches"] = lf["serving"]["launches"]["moe_experts"]
+        report["kernels"] = list(rows.values())
+        (out_dir := ROOT / "chiprun_out").mkdir(exist_ok=True)
+        (out_dir / "chip_smoke_lfm2.json").write_text(json.dumps(report, indent=1, default=float))
+        print(json.dumps({"kernels": report["kernels"]}))
+        print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
+                                                 "count": torch.cuda.device_count()}}))
+        return 0
 
     # --- 2. build --------------------------------------------------------------------
     build_s = _build.build_all()
@@ -1809,6 +1980,10 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    # --- 18. LFM2-8B-A1B: the expert kernel and the Engine -----------------------------
+    lf = report["phases"]["lfm2"] = phase_lfm2(dev, device_ms)
+    results.update(lf.pop("kernel_rows"))
+
     # --- 16. load published formats at Air width --------------------------------------
     conv, conv_paths = phase_converters(dev, run_path, texts, refs, ref_text)
     report["converters"] = conv
@@ -1852,7 +2027,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # --- report ------------------------------------------------------------------------
-    paths = (w8, d16, s8, s16, w4, s4, stream, mc, *conv_paths, tp17)
+    paths = (w8, d16, s8, s16, w4, s4, stream, mc, lf["serving"], *conv_paths, tp17)
     for key, r in results.items():
         # a shape row (name@shape) counts its kernel's launches at every shape
         r["launches"] = sum(ph["launches"][key.split("@")[0]] for ph in paths)

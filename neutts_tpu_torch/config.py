@@ -155,8 +155,63 @@ class BackboneConfig:
         """Embedding rows rounded up to a lane multiple for MXU-friendly matmuls."""
         return round_up(self.vocab_size, 256)
 
+    @property
+    def n_cache_layers(self) -> int:
+        """Layers that keep K/V in the cache: all of them in the Qwen2 block."""
+        return self.n_layers
+
     def scaled(self, **kw) -> "BackboneConfig":
         return dataclasses.replace(self, **kw)
+
+
+@dataclasses.dataclass(frozen=True)
+class Lfm2Config(BackboneConfig):
+    """LFM2-MoE backbone (LiquidAI LFM2-8B-A1B, HF `lfm2_moe`): per layer
+    either a gated short convolution or GQA attention with RMSNorm over each
+    head's q and k and no QKV bias; a dense SwiGLU FFN (`intermediate_size`)
+    in the first `n_dense_layers` layers and routed experts after them
+    (sigmoid scores, top-k on score + expert bias, weights from the scores
+    normalised to sum 1). A port-only architecture: the JAX package runs
+    the Qwen2 block alone, and the port serves this one through the
+    `Engine` (`models/lfm2.py`)."""
+
+    layer_types: Tuple[str, ...] = ()  # "conv" | "full_attention", one per layer
+    conv_kernel: int = 3  # conv_L_cache: taps of the causal depthwise convolution
+    n_experts: int = 32
+    n_experts_per_tok: int = 4
+    moe_intermediate_size: int = 1792
+    n_dense_layers: int = 2
+
+    def __post_init__(self):
+        if len(self.layer_types) != self.n_layers or not set(self.layer_types) <= {
+                "conv", "full_attention"}:
+            raise ValueError(f"{self.name}: layer_types must give 'conv' or 'full_attention' "
+                             f"for each of {self.n_layers} layers")
+
+    @property
+    def attn_layers(self) -> Tuple[int, ...]:
+        return tuple(i for i, t in enumerate(self.layer_types) if t == "full_attention")
+
+    @property
+    def conv_layers(self) -> Tuple[int, ...]:
+        return tuple(i for i, t in enumerate(self.layer_types) if t == "conv")
+
+    @property
+    def n_cache_layers(self) -> int:
+        return len(self.attn_layers)
+
+    @property
+    def n_moe_layers(self) -> int:
+        return self.n_layers - self.n_dense_layers
+
+
+def require_qwen2(cfg: BackboneConfig, what: str) -> None:
+    """Refuse an LFM2 config on a path that runs the Qwen2 block alone (the
+    single-stream decode, tensor parallelism, training)."""
+    if isinstance(cfg, Lfm2Config):
+        raise NotImplementedError(
+            f"{what} runs the Qwen2 block; {cfg.name} (conv and expert layers) is served by "
+            f"serving.Engine and serving.MultiChipEngine alone")
 
 
 # kv_dtype="auto" crossover (total context tokens): int8 below, int4 at or
@@ -232,6 +287,49 @@ TINY = _lm(
     intermediate_size=128,
     max_context=512,
     dtype="float32",  # f32 activations keep the unit-test oracles tight
+)
+
+
+# LFM2-8B-A1B (huggingface.co/LiquidAI/LFM2-8B-A1B config.json): 18 conv and
+# 6 attention layers, 32 experts of 1,792 (top 4) after 2 dense layers of
+# 7,168. Its 65,536 text ids are extended by the 6 control tokens and 65,536
+# speech codes, as NeuTTS-Air extended Qwen2.5's (vocab 131,078).
+LFM2_LAYER_TYPES = tuple(
+    "full_attention" if i in (2, 6, 10, 14, 18, 21) else "conv" for i in range(24))
+LFM2_LAYOUT = TokenLayout(n_text_tokens=65_536)
+LFM2_8B_A1B = Lfm2Config(
+    name="lfm2-8b-a1b",
+    vocab_size=LFM2_LAYOUT.vocab_size,
+    n_text_tokens=LFM2_LAYOUT.n_text_tokens,
+    hidden_size=2048,
+    n_layers=24,
+    n_heads=32,
+    n_kv_heads=8,
+    head_dim=64,
+    intermediate_size=7168,
+    rms_norm_eps=1e-5,
+    layer_types=LFM2_LAYER_TYPES,
+)
+
+# Tiny LFM2-MoE for unit tests: the conv/attention pattern, 2 dense layers,
+# 8 experts, top 2.
+LFM2_TINY = Lfm2Config(
+    name="lfm2-tiny",
+    vocab_size=TEST_LAYOUT.vocab_size,
+    n_text_tokens=TEST_LAYOUT.n_text_tokens,
+    hidden_size=64,
+    n_layers=6,
+    n_heads=4,
+    n_kv_heads=2,
+    head_dim=16,
+    intermediate_size=128,
+    rms_norm_eps=1e-5,
+    max_context=512,
+    dtype="float32",
+    layer_types=("conv", "conv", "full_attention", "conv", "full_attention", "conv"),
+    n_experts=8,
+    n_experts_per_tok=2,
+    moe_intermediate_size=32,
 )
 
 

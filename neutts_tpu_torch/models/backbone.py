@@ -31,7 +31,7 @@ import torch
 import torch.nn.functional as F
 import torch.utils.checkpoint
 
-from neutts_tpu_torch.config import BackboneConfig, round_up
+from neutts_tpu_torch.config import BackboneConfig, require_qwen2, round_up
 from neutts_tpu_torch.models.checkpoint import param_count, tree_to  # noqa: F401 (API)
 from neutts_tpu_torch.ops import attention as attn_ops
 from neutts_tpu_torch.ops import mlp as mlp_ops
@@ -330,7 +330,7 @@ class KVCache:
         """kv_heads: the KV heads kept (default all; a tensor-parallel rank
         keeps those its query heads read, `parallel.tensor.n_kv_heads`)."""
         T = max_len or cfg.max_context
-        L, KD = cfg.n_layers, (kv_heads or cfg.n_kv_heads) * cfg.head_dim
+        L, KD = cfg.n_cache_layers, (kv_heads or cfg.n_kv_heads) * cfg.head_dim
         shape = (L, batch, T, KD)
 
         def zeros(shape, dt):
@@ -571,6 +571,7 @@ def prefill_hidden(cfg: BackboneConfig, params: Params, tokens: torch.Tensor,
     last position [B, D]. `tp`: the Mesh of a tensor-parallel rank holding
     `parallel.mesh.shard_params`' slices (KD is then its KV heads'), or
     None."""
+    require_qwen2(cfg, "backbone.prefill_hidden")
     B, Lp = tokens.shape
     dev = tokens.device
     pad = (Lp - prompt_lens).to(torch.int32)
@@ -606,6 +607,7 @@ def decode_hidden(cfg: BackboneConfig, params: Params, layers, token: torch.Tens
     its caller keeps the cache and returns the attention [B,K,G,Dh]. Returns
     the final-normed hidden state [B, D]. `tp` as in `prefill_hidden`: K
     and G are then the rank's."""
+    require_qwen2(cfg, "backbone.decode_hidden")
     B = token.shape[0]
     K = tp_ops.n_kv_heads(cfg, tp)
     cos, sin = rope_tables(cfg.head_dim, cfg.rope_theta, positions[:, None])
@@ -692,6 +694,7 @@ def forward_train(cfg: BackboneConfig, params: Params, tokens: torch.Tensor,
     layer's activations instead of keeping all L of them. `tp` as in
     `prefill_hidden`: the collectives are autograd functions, so the
     gradients are those of the rank's slices."""
+    require_qwen2(cfg, "training (backbone.forward_train)")
     if quantized_weights(params):
         raise ValueError("forward_train takes float weights: quantized weights are for "
                          "inference")

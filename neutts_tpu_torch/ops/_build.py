@@ -4,12 +4,13 @@ Each `csrc/*.cu` file is compiled by `nvcc` on its own into a shared library
 with a plain C interface, loaded with `ctypes` (no PyTorch headers, so a
 build takes seconds). The libraries go to `neutts_tpu_torch/_build/`, named
 after a hash of the source, the shared headers and the flags, so an edited
-source is rebuilt and an unchanged one is reused. All missing libraries are
-built at once, one `nvcc` process per source, started together.
+source is rebuilt and an unchanged one is reused. All missing libraries of
+the Qwen2 block's kernels are built at once, one `nvcc` process per source,
+started together; the expert kernel (`MOE_SOURCES`) alone, at its first use.
 
 Nothing here runs at import time: the first kernel launch builds what it
 needs. `launches` counts, per kernel, the launches made through the
-wrappers in `ops/attention.py` and `ops/mlp.py`.
+wrappers in `ops/attention.py`, `ops/mlp.py` and `ops/moe.py`.
 """
 
 from __future__ import annotations
@@ -31,6 +32,8 @@ SOURCES = (
     "decode_attention.cu", "prefill_attention.cu", "w8a8.cu", "staged_attention.cu",
     "slot_copy.cu",
 )
+# built alone at first use, so that a model without routed experts never waits for it
+MOE_SOURCES = ("moe.cu",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -50,6 +53,7 @@ launches: Dict[str, int] = {
     "reconcile_segment4": 0,
     "scatter_prefill": 0,
     "scatter_prefill4": 0,
+    "moe_experts": 0,  # one call: the gate/up and the down kernel of csrc/moe.cu
 }
 
 # dtype codes of csrc/common.cuh; DT_I4 marks a cache of packed int4 pairs
@@ -83,13 +87,13 @@ def _lib_path(src: str) -> Path:
     return BUILD_DIR / f"{Path(src).stem}-{h.hexdigest()[:16]}.so"
 
 
-def build_all() -> float:
-    """Compile every source whose library is missing, all in parallel.
+def build_all(sources=SOURCES) -> float:
+    """Compile every source of `sources` whose library is missing, all in parallel.
     Returns the wall seconds spent; raises with nvcc's output on failure.
     Each build's ptxas report (registers, shared memory, spills) is kept
     beside its library as `<stem>.log`."""
     t0 = time.perf_counter()
-    todo = [s for s in SOURCES if not _lib_path(s).exists()]
+    todo = [s for s in sources if not _lib_path(s).exists()]
     if not todo:
         return 0.0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -120,7 +124,7 @@ def library(src: str) -> ctypes.CDLL:
     if lib is None:
         path = _lib_path(src)
         if not path.exists():
-            build_all()
+            build_all(MOE_SOURCES if src in MOE_SOURCES else SOURCES)
         lib = ctypes.CDLL(str(path))
         _libs[src] = lib
     return lib

@@ -24,7 +24,7 @@ from typing import Dict, Optional, Sequence
 import torch
 import torch.distributed as dist
 
-from neutts_tpu_torch.config import BackboneConfig
+from neutts_tpu_torch.config import BackboneConfig, require_qwen2
 from neutts_tpu_torch.models.checkpoint import tree_to
 from neutts_tpu_torch.parallel import tensor as tp_ops
 from neutts_tpu_torch.pipeline import resolve_device
@@ -197,6 +197,7 @@ def shard_params(params, mesh: Mesh, cfg: BackboneConfig):
     t), rank d*tp + t, as its own copy; the tree itself at tp 1. Float
     weights only at tp > 1, as the JAX layout has no entries for the
     quantized leaves (nor for the speech head)."""
+    require_qwen2(cfg, "tensor parallelism (parallel.mesh.shard_params)")
     if mesh.tp == 1:
         return tree_to(params, mesh.device)
     tp_ops.check_tp(cfg, mesh.tp)

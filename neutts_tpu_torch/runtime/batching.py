@@ -40,6 +40,15 @@ caller's stream's queued work and before its later work. The segment's
 host ints (the staging column, the layer, n_steps, the cache length) are
 the same in every segment, and all that changes lives on the device.
 
+An LFM2-MoE config (`config.Lfm2Config`, `models/lfm2.py`) keeps two kinds
+of state side by side: the KV cache of its attention layers alone (the
+model's attention index is the cache layer) and each conv layer's state
+(`SlotState.conv`), which admission writes, every step reads and replaces
+in place, and retirement zeroes. Its decode routes every row's token over
+the experts on the device; `SlotState.expert_rows` counts the rows each
+expert took in each MoE layer and the steps in which it took any, in place,
+inside the captured segment too.
+
 Spans (`neutts_tpu_torch.utils`): each eager step is a `decode.step`; a
 replay is one `decode.replay`, a first call's run and capture one
 `decode.capture` (both with attribute `steps`); the captured body records
@@ -50,12 +59,13 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from neutts_tpu_torch.config import BackboneConfig, SamplingConfig, round_up
 from neutts_tpu_torch.models import backbone as bb
+from neutts_tpu_torch.models import lfm2
 from neutts_tpu_torch.ops import _build
 from neutts_tpu_torch.ops import attention as attn_ops
 from neutts_tpu_torch.ops import sampling as smp
@@ -95,6 +105,11 @@ class SlotState:
     prompt_lens: torch.Tensor  # [B] int32 padded prompt portion (min_new bookkeeping)
     active: torch.Tensor  # [B] bool decoding (not empty, not finished)
     generator: torch.Generator  # sampling noise (the JAX state's `key`)
+    # LFM2: [Lc, B, K-1, D] conv state, and [Lm, 2, E] int64 counts since the
+    # last zeroing: [:, 0] the decode rows routed to each expert, [:, 1] the
+    # decode steps in which it took any (None for the Qwen2 block)
+    conv: Optional[torch.Tensor] = None
+    expert_rows: Optional[torch.Tensor] = None
     # captured staged segments by step count (CUDA devices; see `_SegmentGraph`)
     graphs: Dict[int, "_SegmentGraph"] = dataclasses.field(default_factory=dict, repr=False,
                                                            compare=False)
@@ -103,6 +118,12 @@ class SlotState:
     def create(cfg: BackboneConfig, n_slots: int, device, seed: int = 0) -> "SlotState":
         dev = torch.device(device)
         zeros = lambda dt: torch.zeros((n_slots,), dtype=dt, device=dev)  # noqa: E731
+        hybrid = {}
+        if lfm2.is_lfm2(cfg):
+            hybrid = {"conv": torch.zeros(lfm2.conv_state_shape(cfg, n_slots),
+                                          dtype=bb.torch_dtype(cfg.dtype), device=dev),
+                      "expert_rows": torch.zeros((cfg.n_moe_layers, 2, cfg.n_experts),
+                                                 dtype=torch.int64, device=dev)}
         return SlotState(
             cache=bb.KVCache.create(cfg, n_slots, max_len=slot_cache_len(cfg), device=dev),
             token=zeros(torch.int32),
@@ -111,7 +132,35 @@ class SlotState:
             prompt_lens=zeros(torch.int32),
             active=zeros(torch.bool),
             generator=torch.Generator(device=dev).manual_seed(seed),
+            **hybrid,
         )
+
+
+def _layers(cfg: BackboneConfig, params) -> list:
+    """Each layer's weights, as the model's decode takes them."""
+    if lfm2.is_lfm2(cfg):
+        return lfm2.layer_params(cfg, params)
+    return [bb.layer_params(params, l) for l in range(cfg.n_layers)]
+
+
+def _prefill_hidden(cfg: BackboneConfig, params, state: SlotState, tokens, true_lens, rows,
+                    store):
+    """The model's prefill; an LFM2 conv state goes to the state's `rows`."""
+    if lfm2.is_lfm2(cfg):
+        def conv_store(i, st):
+            state.conv[i, rows] = st
+
+        return lfm2.prefill_hidden(cfg, params, tokens, true_lens, store, conv_store)
+    return bb.prefill_hidden(cfg, params, tokens, true_lens, store)
+
+
+def _decode_hidden(cfg: BackboneConfig, params, layers, state: SlotState, token, positions,
+                   attend):
+    """The model's decode step over `state`'s conv state and expert counts."""
+    if lfm2.is_lfm2(cfg):
+        return lfm2.decode_hidden(cfg, params, layers, token, positions, attend, state.conv,
+                                  state.expert_rows)
+    return bb.decode_hidden(cfg, params, layers, token, positions, attend)
 
 
 @torch.inference_mode()
@@ -134,7 +183,7 @@ def prefill_slots(cfg: BackboneConfig, sampling: SamplingConfig, eos_id: int, pa
     src = torch.where(slots[:, None] == slots[None, :], ar[None, :], G).amin(dim=1)
     primary = src == ar
     rows = slots.long()
-    L, KD = cfg.n_layers, cfg.kv_dim
+    L, KD = cfg.n_cache_layers, cfg.kv_dim
     if cache.int4:
         # stack packed K/V [L, G, Lp/2, KD], token-order scales [L, G, Lp] and
         # last-token values [L, G, KD], then ONE scatter_prefill4
@@ -148,7 +197,7 @@ def prefill_slots(cfg: BackboneConfig, sampling: SamplingConfig, eos_id: int, pa
                 packed[i][l] = bb.pack4_pairs(q)
                 last[i][l] = q[:, -1]
 
-        h = bb.prefill_hidden(cfg, params, tokens, true_lens, store)
+        h = _prefill_hidden(cfg, params, state, tokens, true_lens, rows, store)
         attn_ops.scatter_prefill4(cache.k, cache.v, cache.k_scale, cache.v_scale, *packed,
                                   *scales, slots, primary)
         # the prev registers of the direct-write path: a tiny [L, G, KD]
@@ -164,14 +213,14 @@ def prefill_slots(cfg: BackboneConfig, sampling: SamplingConfig, eos_id: int, pa
             v=torch.empty((L, G, Lp, KD), dtype=torch.int8, device=dev),
             k_scale=torch.empty((L, G, Lp), dtype=torch.float32, device=dev),
             v_scale=torch.empty((L, G, Lp), dtype=torch.float32, device=dev))
-        h = bb.prefill_hidden(cfg, params, tokens, true_lens,
-                              lambda l, k, v: bb.write_kv(new, l, (), k, v))
+        h = _prefill_hidden(cfg, params, state, tokens, true_lens, rows,
+                            lambda l, k, v: bb.write_kv(new, l, (), k, v))
         attn_ops.scatter_prefill(cache.k, cache.v, cache.k_scale, cache.v_scale,
                                  new.k, new.v, new.k_scale, new.v_scale, slots, primary)
         del new
     else:
-        h = bb.prefill_hidden(cfg, params, tokens, true_lens,
-                              lambda l, k, v: bb.write_kv(cache, l, (rows, slice(0, Lp)), k, v))
+        h = _prefill_hidden(cfg, params, state, tokens, true_lens, rows,
+                            lambda l, k, v: bb.write_kv(cache, l, (rows, slice(0, Lp)), k, v))
     first = smp.sample_from_hidden(cfg, sampling, params, h, state.generator, eos_id,
                                    0 < sampling.min_new_tokens)[src]  # [G]
     pads = (Lp - true_lens).to(torch.int32)
@@ -195,8 +244,11 @@ def prefill_slot(cfg: BackboneConfig, sampling: SamplingConfig, eos_id: int, par
 @torch.inference_mode()
 def retire_slots(state: SlotState, retire_mask: torch.Tensor) -> SlotState:
     """Deactivate the slots of retire_mask [B] bool: inactive, length and
-    pad 0 (the staged decode then attends their staging columns alone)."""
+    pad 0 (the staged decode then attends their staging columns alone); an
+    LFM2 conv state is zeroed in place."""
     state.active = state.active & ~retire_mask
+    if state.conv is not None:
+        state.conv.masked_fill_(retire_mask[None, :, None, None], 0)
     state.lens = torch.where(retire_mask, 0, state.lens)
     state.pad = torch.where(retire_mask, 0, state.pad)
     return state
@@ -260,7 +312,7 @@ def _staged_segment(cfg, sampling, eos_id, n_steps, params, state, traced):
     quantize = bb.quantize_kv4 if cache.int4 else bb.quantize_kv
     B = state.token.shape[0]
     dev = state.token.device
-    L, S, KD = cfg.n_layers, n_steps, cfg.kv_dim
+    L, S, KD = cfg.n_cache_layers, n_steps, cfg.kv_dim
     base = state.lens  # settled length per row, constant over the segment
     active0 = state.active  # rows reconciled at segment end
     stag = bb.KVCache(  # staging: [L, B, S, KD] values, [L, B, SEG_PAD] scales
@@ -269,7 +321,7 @@ def _staged_segment(cfg, sampling, eos_id, n_steps, params, state, traced):
         k_scale=torch.zeros((L, B, attn_ops.SEG_PAD), dtype=torch.float32, device=dev),
         v_scale=torch.zeros((L, B, attn_ops.SEG_PAD), dtype=torch.float32, device=dev))
     outs = torch.empty((B, S), dtype=torch.int32, device=dev)
-    layers = [bb.layer_params(params, l) for l in range(L)]
+    layers = _layers(cfg, params)
     token, lens, active = state.token, state.lens, state.active
     for i in range(S):
         def attend(l, q, k, v, i=i):
@@ -281,7 +333,7 @@ def _staged_segment(cfg, sampling, eos_id, n_steps, params, state, traced):
 
         with span("decode.step") if traced else contextlib.nullcontext():
             # RoPE position: the real tokens before this one
-            h = bb.decode_hidden(cfg, params, layers, token, lens - state.pad, attend)
+            h = _decode_hidden(cfg, params, layers, state, token, lens - state.pad, attend)
             token, active, lens = _step_head(cfg, sampling, eos_id, params, state, h,
                                              lens + 1, active, lens, n_steps)
             outs[:, i] = token
@@ -319,12 +371,13 @@ class _SegmentGraph:
     the results: the state's tensors are never written and no returned
     tensor aliases a buffer. The body bakes in the state's cache and
     generator, n_steps, the config, the params, the sampling config and
-    eos_id; `serves` tells whether a call may replay it. `launches` holds
+    eos_id, and an LFM2 state's conv state and expert counts, which it
+    updates in place; `serves` tells whether a call may replay it. `launches` holds
     the kernel wrappers' launches of one replay (`_build.launches`)."""
 
     def __init__(self, cfg, sampling, eos_id, n_steps, params, state: SlotState):
         self.args = (cfg, sampling, eos_id, n_steps, params)
-        self.cache = _cache_tensors(state.cache)
+        self.buffers = _state_buffers(state)
         self.static = dataclasses.replace(
             state, graphs={}, **{n: getattr(state, n).clone() for n in _SLOT_INPUTS})
         self.graph = None
@@ -335,7 +388,7 @@ class _SegmentGraph:
         c, s, e, _, p = self.args
         return (p is params and c == cfg and s == sampling and e == eos_id
                 and self.static.generator is state.generator
-                and all(a is b for a, b in zip(self.cache, _cache_tensors(state.cache))))
+                and all(a is b for a, b in zip(self.buffers, _state_buffers(state))))
 
     def body(self, traced: bool = False):
         """The segment over the static buffers (the captured body)."""
@@ -375,6 +428,10 @@ class _SegmentGraph:
         each replay draws fresh noise. The capture launches nothing, so the
         wrappers' counts of it move to the replays."""
         state, outs = self.launch(state, lambda: self.body(traced=True))
+        # the graph's private pool cannot take blocks the caching allocator
+        # holds free (after an LFM2 admission, tens of GB): hand them back
+        # first (once a state and step count)
+        torch.cuda.empty_cache()
         graph = torch.cuda.CUDAGraph()
         if not self.args[1].greedy:
             graph.register_generator_state(state.generator)
@@ -394,8 +451,12 @@ class _SegmentGraph:
         return state, outs
 
 
-def _cache_tensors(cache: bb.KVCache) -> tuple:
-    return tuple(getattr(cache, f.name) for f in dataclasses.fields(cache))
+def _state_buffers(state: SlotState) -> tuple:
+    """The buffers a segment writes in place: the cache, an LFM2 conv state
+    and expert counts."""
+    cache = state.cache
+    return tuple(getattr(cache, f.name) for f in dataclasses.fields(cache)) + (
+        state.conv, state.expert_rows)
 
 
 def _graphs_supported(sampling: SamplingConfig) -> bool:
@@ -431,7 +492,7 @@ def _decode_steps_scatter(cfg, sampling, eos_id, n_steps, params, state):
     B = state.token.shape[0]
     ar = torch.arange(B, device=state.token.device)
     outs = torch.empty((B, n_steps), dtype=torch.int32, device=state.token.device)
-    layers = [bb.layer_params(params, l) for l in range(cfg.n_layers)]
+    layers = _layers(cfg, params)
     for i in range(n_steps):
         with span("decode.step"):
             write_at = torch.clamp(state.lens, max=cache.max_len - 1)  # [B] per-row write slot
@@ -445,7 +506,8 @@ def _decode_steps_scatter(cfg, sampling, eos_id, n_steps, params, state):
                 return attn_ops.decode_attention(q, cache.k, cache.v, l, lens_new, state.pad,
                                                  cache.k_scale, cache.v_scale)
 
-            h = bb.decode_hidden(cfg, params, layers, state.token, write_at - state.pad, attend)
+            h = _decode_hidden(cfg, params, layers, state, state.token, write_at - state.pad,
+                               attend)
             state.token, state.active, state.lens = _step_head(
                 cfg, sampling, eos_id, params, state, h, lens_new, state.active, state.lens,
                 n_steps)

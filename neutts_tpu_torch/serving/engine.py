@@ -19,6 +19,11 @@ back through a pinned copy queued right after the segment, so the pipelined
 `run` overlaps the host's bookkeeping of segment N with the device's work on
 segment N+1.
 
+An LFM2-MoE config (`config.Lfm2Config`) is served the same way; its
+per-expert row counts (`SlotState.expert_rows`) ride the segment's readback,
+and `stats["expert_load_peak"]` gives the busiest expert's decode rows over
+the mean, in percent (100 = even), averaged over the MoE layers.
+
 Spans (`neutts_tpu_torch.utils`, recorded while the tracer is on):
 `engine.dispatch` holds `engine.admit` (its `engine.prefill_group`s) and
 `batching.decode_steps` (its `decode.step`s); `engine.collect` holds
@@ -72,8 +77,10 @@ class _Readback:
             self.host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True) for t in tensors]
             for h, t in zip(self.host, tensors):
                 h.copy_(t, non_blocking=True)
+            # on the tensors' own card: a replica of `MultiChipEngine` reads
+            # back from a card that is not the current device
             self.event = torch.cuda.Event()
-            self.event.record()
+            self.event.record(torch.cuda.current_stream(tensors[0].device))
         else:
             self.host = [t.clone() for t in tensors]
 
@@ -82,6 +89,17 @@ class _Readback:
         if self.event is not None:
             self.event.synchronize()
         return [h.numpy() for h in self.host]
+
+
+def expert_load_peak(rows: np.ndarray) -> Optional[float]:
+    """rows [MoE layers, E] routed rows -> 100 x the busiest expert's rows
+    over the mean, averaged over the layers that routed any (100 = even)."""
+    rows = rows.astype(np.float64)
+    mean = rows.mean(axis=1)
+    ok = mean > 0
+    if not ok.any():
+        return None
+    return float(100.0 * (rows.max(axis=1)[ok] / mean[ok]).mean())
 
 
 class Engine:
@@ -141,7 +159,10 @@ class Engine:
 
     def reset_stats(self) -> None:
         """Zero the throughput-tax counters (call between a warm-up run and
-        the measured run)."""
+        the measured run); an LFM2 state's expert counts are zeroed on the
+        device, in stream order."""
+        if self.state.expert_rows is not None:
+            self.state.expert_rows.zero_()
         self.stats = {
             "dispatched_token_slots": 0,  # segment_steps x n_slots per dispatch
             "useful_tokens": 0,  # tokens delivered to requests
@@ -217,7 +238,8 @@ class Engine:
                 self.cfg, self.sampling, self.eos_id, S, self.params, self.state)
         # the segment's tokens and active flags, and the admission's first
         # tokens, go to the host in stream order, before any later dispatch
-        readback = _Readback(outs, self.state.active, self._pending_first)
+        extra = () if self.state.expert_rows is None else (self.state.expert_rows,)
+        readback = _Readback(outs, self.state.active, self._pending_first, *extra)
         token = next(self._dispatch_id)
         self._inflight = (token, {i for i, r in enumerate(self._slot_req) if r is not None})
         # snapshot the slot->request mapping: a pipelined collect runs after
@@ -232,7 +254,9 @@ class Engine:
         delivered = len(self._finished)
         if self._inflight is not None and self._inflight[0] == token:
             self._inflight = None  # this dispatch is no longer in flight
-        outs, active, first_tokens = readback.wait()
+        outs, active, first_tokens, *expert_rows = readback.wait()
+        if expert_rows:
+            self.stats["expert_load_peak"] = expert_load_peak(expert_rows[0][:, 0])
         retire: List[int] = []
         # admission-time first tokens (sampled inside prefill_slots)
         for slot, req in newly:

@@ -1014,3 +1014,138 @@ def test_bf16_matmul_f32_result_and_backward(dev):
     for got, want in ((x.grad, want_x), (w.grad, want_w)):
         assert got.dtype == torch.bfloat16
         torch.testing.assert_close(got.float(), want.float(), rtol=1e-2, atol=1e-6)
+
+
+def _moe_case(dev, T, E=32, k=4, D=2048, Fe=1792, empty=(5,), seed=0):
+    """Seeded bf16 tokens and experts at LFM2-8B-A1B's widths, routed top-k
+    over random scores; the experts in `empty` take no rows."""
+    from neutts_tpu_torch.ops import moe as moe_ops
+
+    x = _randn(dev, T, D, dtype=torch.bfloat16, seed=seed)
+    wg = _randn(dev, E, D, Fe, dtype=torch.bfloat16, seed=seed + 1, scale=D ** -0.5)
+    wu = _randn(dev, E, D, Fe, dtype=torch.bfloat16, seed=seed + 2, scale=D ** -0.5)
+    wd = _randn(dev, E, Fe, D, dtype=torch.bfloat16, seed=seed + 3, scale=Fe ** -0.5)
+    scores = _randn(dev, T, E, seed=seed + 4)
+    scores[:, list(empty)] = -float("inf")
+    idx = torch.topk(scores, k, dim=-1).indices
+    perm, offsets, counts = moe_ops.sort_pairs(idx, E)
+    return x, wg, wu, wd, idx, perm, offsets, counts
+
+
+@pytest.mark.parametrize("T", [256, 64 * 512], ids=["decode_256x4", "admission_64x512x4"])
+def test_moe_grouped_kernel(dev, T):
+    """The grouped SwiGLU expert kernel against its plain version at the
+    serving decode shape (256 tokens x top 4) and an admission's (64 x 512
+    tokens x top 4), LFM2-8B-A1B widths, with an expert of no rows. Both
+    round the SwiGLU activation to bf16; their f32 sums differ in order, so
+    an activation may round one bf16 step apart: 1e-2 of the output range.
+    The kernel is deterministic and one wrapper call."""
+    from neutts_tpu_torch.ops import moe as moe_ops
+
+    x, wg, wu, wd, idx, perm, offsets, counts = _moe_case(dev, T)
+    assert int(counts[5]) == 0
+    before = _build.launches["moe_experts"]
+    y = moe_ops.grouped_swiglu(x, perm, offsets, wg, wu, wd, 4)
+    assert _build.launches["moe_experts"] == before + 1
+    want = moe_ops.grouped_swiglu_plain(x, perm, offsets, wg, wu, wd, 4)
+    torch.cuda.synchronize()
+    assert torch.isfinite(y).all()
+    err = (y - want).abs().max().item()
+    assert err <= 1e-2 * want.abs().max().item(), err
+    assert torch.equal(y, moe_ops.grouped_swiglu(x, perm, offsets, wg, wu, wd, 4))
+
+
+def test_moe_kernel_refuses_what_it_cannot_take(dev):
+    from neutts_tpu_torch.ops import moe as moe_ops
+
+    x, wg, wu, wd, idx, perm, offsets, _ = _moe_case(dev, 16, E=4, k=2, D=128, Fe=64, empty=())
+    with pytest.raises(TypeError):
+        moe_ops.grouped_swiglu(x.float(), perm, offsets, wg, wu, wd, 2)
+    with pytest.raises(ValueError):
+        moe_ops.grouped_swiglu(x[:, :96].contiguous(), perm, offsets, wg[:, :96].contiguous(),
+                               wu[:, :96].contiguous(), wd[..., :96].contiguous(), 2)
+
+
+def _lfm2_card_cfg():
+    """A small LFM2-MoE the kernels take: hidden 128, heads of 64, 8 experts
+    of 64 (top 2), the conv/attention pattern, bf16, int8 KV."""
+    from neutts_tpu_torch import config
+
+    return config.LFM2_TINY.scaled(hidden_size=128, n_heads=4, n_kv_heads=2, head_dim=64,
+                                   intermediate_size=256, moe_intermediate_size=64,
+                                   dtype="bfloat16", kv_dtype="int8")
+
+
+def test_lfm2_segment_graph_matches_eager_staged(dev):
+    """An LFM2-MoE on the card: `decode_steps` (one capture, then replays)
+    against the eager `_decode_steps_staged` over four segments with a
+    retirement and admissions between them: tokens, lens, active, the cache,
+    the conv state and the expert counts equal. One capture per state and
+    step count: a second state and another step count each capture their
+    own graph, and a replay counts the expert kernel's launches."""
+    from neutts_tpu_torch import config
+    from neutts_tpu_torch.models import lfm2
+    from neutts_tpu_torch.runtime import batching
+    from neutts_tpu_torch.utils import TRACER
+
+    cfg = _lfm2_card_cfg()
+    lay = cfg.layout
+    eos = lay.speech_gen_end
+    params = bb.add_speech_head(cfg, lfm2.init_params(cfg, seed=3, device=dev))
+    scfg = config.SamplingConfig(greedy=True, min_new_tokens=4).constrained_to(lay)
+    S = 16
+    prompts = [[lay.speech_base + (7 * i + j) % 60 for j in range(5 + 3 * i)] for i in range(3)]
+
+    def fresh():
+        state = batching.SlotState.create(cfg, 4, dev, seed=5)
+        return _graph_admit(cfg, scfg, params, state, prompts, [0, 1, 2])
+
+    sA, sB = fresh(), fresh()
+    moe_layers = cfg.n_moe_layers
+    with TRACER.on() as records:
+        for r in range(4):
+            if r == 2:
+                retire = torch.tensor([False, True, False, False], device=dev)
+                sA, sB = (batching.retire_slots(s, retire) for s in (sA, sB))
+                sA, sB = (_graph_admit(cfg, scfg, params, s, [prompts[0][::-1], prompts[2][:4]],
+                                       [1, 3]) for s in (sA, sB))
+            n0 = _build.launches["moe_experts"]
+            sA, outA = batching.decode_steps(cfg, scfg, eos, S, params, sA)
+            n1 = _build.launches["moe_experts"]
+            sB, outB = batching._decode_steps_staged(cfg, scfg, eos, S, params, sB)
+            assert n1 - n0 == _build.launches["moe_experts"] - n1 == S * moe_layers, r
+            torch.cuda.synchronize()
+            assert torch.equal(outA, outB), r
+            for n in ("token", "lens", "active", "conv", "expert_rows"):
+                assert torch.equal(getattr(sA, n), getattr(sB, n)), (r, n)
+            for f in ("k", "v", "k_scale", "v_scale"):
+                assert torch.equal(getattr(sA.cache, f), getattr(sB.cache, f)), (r, f)
+        assert int(sA.expert_rows[:, 0].sum()) == 4 * S * 4 * cfg.n_experts_per_tok * moe_layers
+        names = [rec.name for rec in records]
+        assert names.count("decode.capture") == 1 and names.count("decode.replay") == 3
+        sC, _ = batching.decode_steps(cfg, scfg, eos, S, params, fresh())
+        assert sC.graphs[S] is not sA.graphs[S]
+        sA, _ = batching.decode_steps(cfg, scfg, eos, 8, params, sA)
+        assert set(sA.graphs) == {8, S}
+        assert [rec.name for rec in records].count("decode.capture") == 3
+
+
+@pytest.mark.skipif(torch.cuda.device_count() < 2, reason="needs a second card")
+def test_readback_waits_on_the_tensors_own_card():
+    """A `MultiChipEngine` replica reads back from a card that is not the
+    current device: `_Readback.wait` must wait for that card's queued work,
+    not the current device's."""
+    from neutts_tpu_torch.serving.engine import _Readback
+
+    other = torch.device("cuda", 1)
+    with torch.cuda.device(0):
+        for _ in range(3):
+            x = torch.zeros(1 << 16, dtype=torch.int32, device=other)
+            torch.cuda.synchronize(other)
+            with torch.cuda.device(other):
+                torch.cuda._sleep(200_000_000)  # ~0.1 s of the other card's stream
+            x.fill_(7)
+            rb = _Readback(x)
+            assert rb.event is not None
+            (got,) = rb.wait()
+            assert (got == 7).all()
