@@ -14,20 +14,35 @@ Semantics kept from the JAX package:
 
 The JAX loop is one jitted `lax.while_loop`; here `generate` is a Python
 loop that reads one flag from the device per step to stop early, and
-`decode_segment` runs its steps with no read of the device at all, each a
-`decode.step` span (`neutts_tpu_torch.utils`).
+`decode_segment` runs its steps with no read of the device at all. Its
+steps take their cache slots from a device index, so on a CUDA device the
+whole segment is ONE CUDA graph launch: the first call of a key (config,
+sampling, params, generator, batch, cache shape, n_steps) runs the segment
+eagerly and captures it (`_StreamGraph`), and every later segment of every
+stream of that key replays it, on the capture stream of the serving graphs
+(`batching._capture_stream`), ordered both ways with the caller's stream.
+An int4 cache keeps the host-index loop.
+
+Spans (`neutts_tpu_torch.utils`): each eager step is a `decode.step`; a
+replay is one `decode.replay`, a first call's run and capture one
+`decode.capture` (both with attribute `steps`); the captured body records
+none.
 """
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import time
 from dataclasses import dataclass
-from typing import NamedTuple, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
 from neutts_tpu_torch.config import BackboneConfig, SamplingConfig, resolve_kv_dtype, round_up
 from neutts_tpu_torch.models import backbone as bb
+from neutts_tpu_torch.ops import _build
+from neutts_tpu_torch.ops import attention as attn_ops
 from neutts_tpu_torch.ops import sampling as smp
 from neutts_tpu_torch.parallel import tensor as tp_ops
 from neutts_tpu_torch.utils import span
@@ -167,8 +182,7 @@ class DecodeState:
     the device. `step` and `prompt_end` are host integers: the step count
     advances by one per step whatever the device computes, so the host knows
     it without a read (JAX carries both as device scalars inside its jitted
-    loop), and the cache slot of each step is a host index, as in
-    `generate`."""
+    loop); a segment fills them into its device index (`_fill_index`)."""
 
     cache: bb.KVCache
     token: torch.Tensor  # [B] int32, last emitted token
@@ -213,7 +227,99 @@ def decode_segment(cfg: BackboneConfig, sampling: SamplingConfig, eos_id: int, n
     cache updated in place. No step reads the device: rows that finish keep
     emitting EOS without growing their length, and steps past a row's
     real-length cap (max_context, left pad not counted) or past the
-    physical cache emit EOS. The caller checks `state.done` / `lengths`."""
+    physical cache emit EOS. The caller checks `state.done` / `lengths`.
+
+    A bf16, f32 or int8 cache takes the steps' cache slots from a device
+    index (`_segment_body`), and on a CUDA device replays one captured
+    graph of the whole segment (`_StreamGraph`); an int4 cache, whose token
+    write pairs nibbles by the slot's parity, runs the host-index loop
+    (`_segment_host`). The returned tensors are new on every call."""
+    if state.cache.int4:
+        return _segment_host(cfg, sampling, eos_id, n_steps, params, state)
+    if state.token.is_cuda and _graphs_supported(sampling, state):
+        return _segment_graphed(cfg, sampling, eos_id, n_steps, params, state)
+    index = _fill_index(torch.empty(2, dtype=torch.int32, device=state.token.device), state)
+    out, token, done, lengths = _segment_body(cfg, sampling, eos_id, n_steps, params, state,
+                                              index, traced=True)
+    return _advanced(state, n_steps, token, done, lengths), out
+
+
+def _advanced(state: DecodeState, n_steps: int, token, done, lengths) -> DecodeState:
+    return dataclasses.replace(state, token=token, done=done, lengths=lengths,
+                               step=state.step + n_steps)
+
+
+def _fill_index(index: torch.Tensor, state: DecodeState) -> torch.Tensor:
+    """index [2] int32 <- (the cache slot of the token the segment's first
+    step feeds, the tokens generated before it), filled on the device: a
+    host-to-device copy would wait for the stream."""
+    index[0].fill_(state.prompt_end + state.step - 1)
+    index[1].fill_(state.step)
+    return index
+
+
+def _write_token_kv(cache: bb.KVCache, l: int, slot: torch.Tensor, kf: torch.Tensor,
+                    vf: torch.Tensor) -> None:
+    """`bb.write_kv` of one token per row [B, KD] at a shared slot given as a
+    device index [1] (a float or int8 cache)."""
+    if cache.quantized:
+        for buf, scales, x in ((cache.k, cache.k_scale, kf), (cache.v, cache.v_scale, vf)):
+            q, sc = bb.quantize_kv(x)
+            buf[l].index_copy_(1, slot, q[:, None])
+            scales[l].index_copy_(1, slot, sc[:, None])
+    else:
+        cache.k[l].index_copy_(1, slot, kf[:, None].to(cache.k.dtype))
+        cache.v[l].index_copy_(1, slot, vf[:, None].to(cache.v.dtype))
+
+
+def _segment_body(cfg, sampling, eos_id, n_steps, params, state: DecodeState,
+                  index: torch.Tensor, traced: bool):
+    """n_steps steps over `state` (a float or int8 cache) with every cache
+    slot read from `index` (`_fill_index`) on the device, so that the host
+    computes nothing that changes from one segment to the next. Writes the
+    cache alone; returns (tokens [B, n_steps], token, done, lengths), all
+    new tensors. Step i feeds its token at slot index[0] + i: a slot past
+    the physical cache is clamped to its last (JAX clamps the write), and
+    then every row already emits EOS. `traced`: each step is a
+    `decode.step` span."""
+    cache, pad = state.cache, state.pad
+    B, T = state.token.shape[0], cache.max_len
+    ar = torch.arange(n_steps, dtype=torch.int32, device=state.token.device)
+    slot = index[0] + ar  # [S] the slot of each step's fed token
+    at = torch.clamp(slot, max=T - 1)
+    cols = at.long()
+    lens = (at + 1)[:, None].expand(n_steps, B).contiguous()  # attend [pad, slot]
+    positions = at[:, None] - pad[None, :]  # RoPE: the real tokens before it
+    # past the real-length cap per row, or the physical one: the token
+    # emitted at step i is fed next at slot + 1
+    nxt_slot = slot[:, None] + 1
+    capped = ((nxt_slot - pad[None, :]) >= cfg.max_context) | (nxt_slot >= T)
+    suppress = (index[1] + ar) < sampling.min_new_tokens  # [S]
+    layers = [bb.layer_params(params, l) for l in range(cfg.n_layers)]
+    out = torch.empty((B, n_steps), dtype=torch.int32, device=state.token.device)
+    token, done, lengths = state.token, state.done, state.lengths
+    for i in range(n_steps):
+        def attend(l, q, k, v, i=i):
+            _write_token_kv(cache, l, cols[i : i + 1], k, v)
+            return attn_ops.decode_attention(q, cache.k, cache.v, l, lens[i], pad,
+                                             cache.k_scale, cache.v_scale)
+
+        with span("decode.step") if traced else contextlib.nullcontext():
+            h = bb.decode_hidden(cfg, params, layers, token, positions[i], attend)
+            nxt = smp.sample_from_hidden(cfg, sampling, params, h, state.generator, eos_id,
+                                         suppress[i])
+            nxt = torch.where(done | capped[i], eos_id, nxt).to(torch.int32)
+            out[:, i] = nxt
+            lengths = lengths + (~done).to(torch.int32)
+            done = done | (nxt == eos_id)
+            token = nxt
+    return out, token, done, lengths
+
+
+def _segment_host(cfg, sampling, eos_id, n_steps, params, state: DecodeState):
+    """`decode_segment` with each step's cache slot a host index, step by
+    step (`bb.decode_step`): the int4 cache's path, and the oracle of the
+    device-index body."""
     B = state.token.shape[0]
     dev = state.token.device
     out = torch.full((B, n_steps), eos_id, dtype=torch.int32, device=dev)
@@ -244,7 +350,142 @@ def decode_segment(cfg: BackboneConfig, sampling: SamplingConfig, eos_id: int, n
             lengths = lengths + (~done).to(torch.int32)
             done = done | (nxt == eos_id)
             token = nxt
-    state = DecodeState(cache=state.cache, token=token, done=done, lengths=lengths,
-                        pad=state.pad, step=state.step + n_steps, prompt_end=Lp,
-                        generator=state.generator)
-    return state, out
+    return _advanced(state, n_steps, token, done, lengths), out
+
+
+# --- the segment as one CUDA graph -----------------------------------------------------
+
+_STREAM_INPUTS = ("token", "done", "lengths", "pad")
+_GRAPHS_KEPT = 8  # captured segments kept per device; the least recently used goes first
+_stream_graphs: Dict[int, Dict[tuple, "_StreamGraph"]] = {}  # device index -> key -> graph
+
+
+def _cache_tensors(cache: bb.KVCache) -> list:
+    return [getattr(cache, f.name) for f in dataclasses.fields(cache)
+            if getattr(cache, f.name) is not None]
+
+
+def _graphs_supported(sampling: SamplingConfig, state: DecodeState) -> bool:
+    """`batching._graphs_supported`; sampling from the default generator
+    (no `state.generator`) stays eager."""
+    from neutts_tpu_torch.runtime import batching
+
+    return batching._graphs_supported(sampling) and (
+        sampling.greedy or state.generator is not None)
+
+
+class _StreamGraph:
+    """One segment of `_segment_body` over static buffers of its own (a
+    cache of the streams' shape, token, done, lengths, pad and the index),
+    replayable as one CUDA graph, and shared by every stream of its key.
+
+    `run` copies a state's cache and tensors into the buffers and fills the
+    index, runs the segment, copies the cache back into the state's own and
+    returns clones of the rest: of the state's tensors only its cache is
+    written, no returned tensor aliases a buffer, and streams of one key may
+    take turns segment by segment. The body bakes in the config, the sampling
+    config, eos_id, n_steps, the params and the generator. `launches` holds
+    the kernel wrappers' launches of one replay (`_build.launches`)."""
+
+    def __init__(self, cfg, sampling, eos_id, n_steps, params, state: DecodeState):
+        self.args = (cfg, sampling, eos_id, n_steps, params)
+        self.static = dataclasses.replace(
+            state, cache=bb.KVCache(*(torch.empty_like(t) for t in _cache_tensors(state.cache))),
+            **{n: torch.empty_like(getattr(state, n)) for n in _STREAM_INPUTS})
+        self.index = torch.zeros(2, dtype=torch.int32, device=state.token.device)
+        self.graph = None
+        self.result = None  # the captured body's (tokens, token, done, lengths)
+        self.launches: Dict[str, int] = {}
+
+    def body(self, traced: bool = False):
+        """The segment over the static buffers (the captured body)."""
+        return _segment_body(*self.args, self.static, self.index, traced)
+
+    def run(self, state: DecodeState, segment) -> Tuple[DecodeState, torch.Tensor]:
+        ours, theirs = _cache_tensors(self.static.cache), _cache_tensors(state.cache)
+        for mine, t in zip(ours, theirs):
+            mine.copy_(t)
+        for n in _STREAM_INPUTS:
+            getattr(self.static, n).copy_(getattr(state, n))
+        _fill_index(self.index, state)
+        out, token, done, lengths = segment()
+        for mine, t in zip(ours, theirs):
+            t.copy_(mine)
+        return (_advanced(state, self.args[3], token.clone(), done.clone(), lengths.clone()),
+                out.clone())
+
+    def launch(self, state: DecodeState, segment) -> Tuple[DecodeState, torch.Tensor]:
+        """`run` on the device's capture stream (`batching._capture_stream`),
+        after the caller's stream's queued work and before its later work."""
+        from neutts_tpu_torch.runtime import batching
+
+        dev = state.token.device
+        stream, here = batching._capture_stream(dev), torch.cuda.current_stream(dev)
+        stream.wait_stream(here)
+        with torch.cuda.stream(stream):
+            state, out = self.run(state, segment)
+        here.wait_stream(stream)
+        for t in (out, state.token, state.done, state.lengths):
+            t.record_stream(here)
+        return state, out
+
+    def replay(self):
+        self.graph.replay()
+        for name, n in self.launches.items():
+            _build.launches[name] += n
+        return self.result
+
+    def capture(self, state: DecodeState) -> Tuple[DecodeState, torch.Tensor]:
+        """The first call: one eager segment on the capture stream, which
+        allocates the split-K workspace and the BLAS handle's workspace
+        outside the graph's pool and is the call's result; then the body's
+        capture. Non-greedy sampling registers the generator, so each
+        replay draws fresh noise. The capture launches nothing, so the
+        wrappers' counts of it move to the replays."""
+        from neutts_tpu_torch.runtime import batching
+
+        state, out = self.launch(state, lambda: self.body(traced=True))
+        torch.cuda.empty_cache()  # the graph's private pool takes no cached free block
+        graph = torch.cuda.CUDAGraph()
+        if not self.args[1].greedy:
+            graph.register_generator_state(self.static.generator)
+        before = dict(_build.launches)
+        with torch.cuda.stream(batching._capture_stream(state.token.device)):
+            graph.capture_begin(capture_error_mode="thread_local")
+            try:
+                self.result = self.body()
+            finally:
+                graph.capture_end()
+        for name, n in _build.launches.items():
+            if n != before[name]:
+                self.launches[name] = n - before[name]
+                _build.launches[name] = before[name]
+        self.graph = graph
+        return state, out
+
+
+def _segment_graphed(cfg, sampling, eos_id, n_steps, params, state: DecodeState):
+    """A segment on a CUDA device: the replay of its key's graph, captured on
+    the key's first call. The key holds what the body bakes in and the
+    buffers' shapes, not the stream's cache, so every later stream replays
+    the same graph. A graph keeps its params and generator alive, so their
+    ids in the key name them alone."""
+    cache = state.cache
+    key = (cfg, sampling, eos_id, n_steps, id(params), id(state.generator),
+           state.token.shape[0], cache.max_len, cache.k.dtype,
+           smp.use_speech_head(cfg, sampling, params))
+    dev = state.token.device
+    store = _stream_graphs.setdefault(dev.index, {})
+    with torch.cuda.device(dev):
+        seg = store.pop(key, None)
+        if seg is None:
+            seg = _StreamGraph(cfg, sampling, eos_id, n_steps, params, state)
+            with span("decode.capture", steps=n_steps):
+                state, out = seg.capture(state)
+        else:
+            with span("decode.replay", steps=n_steps):
+                state, out = seg.launch(state, seg.replay)
+        store[key] = seg  # the most recently used last
+        while len(store) > _GRAPHS_KEPT:
+            del store[next(iter(store))]
+        return state, out

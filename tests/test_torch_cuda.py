@@ -857,6 +857,101 @@ def test_decode_segment_never_waits_for_the_device(dev, kv_dtype):
     assert seg.shape == (2, 16) and not bool(state.done.any())
 
 
+def _stream_model(dev, kv_dtype):
+    """TINY with a speech head, bf16 weights and activations for a bf16 cache."""
+    from neutts_tpu_torch import config
+
+    dtype = "bfloat16" if kv_dtype == "bfloat16" else "float32"
+    cfg = config.TINY.scaled(kv_dtype=kv_dtype, dtype=dtype, max_context=224)
+    return cfg, bb.add_speech_head(cfg, bb.init_params(cfg, seed=3, device=dev))
+
+
+def _stream_prefill(cfg, scfg, params, dev, prompts, bucket, gen):
+    from neutts_tpu_torch.runtime import decode as dec
+
+    toks, lens = dec.pad_prompts(prompts, pad_id=0, bucket=bucket, device=dev)
+    return dec.prefill_init(cfg, scfg, cfg.layout.speech_gen_end, params, toks, lens, gen)[0]
+
+
+@pytest.mark.parametrize("kv_dtype,greedy", [("bfloat16", True), ("int8", True), ("int8", False)])
+def test_stream_graph_matches_eager(dev, kv_dtype, greedy):
+    """`decode_segment` on the card (one capture, then replays of the
+    segment's CUDA graph) against the host-index loop over four 12-step
+    segments: tokens, done, lengths and the cache bytes equal. Top-k
+    sampling draws the same noise from a registered generator of the same
+    seed. A replay adds the eager segment's launches to `_build.launches`."""
+    from neutts_tpu_torch import config
+    from neutts_tpu_torch.runtime import decode as dec
+    from neutts_tpu_torch.utils import TRACER
+
+    cfg, params = _stream_model(dev, kv_dtype)
+    eos = cfg.layout.speech_gen_end
+    scfg = config.SamplingConfig(greedy=greedy, min_new_tokens=10_000,
+                                 max_context=224).constrained_to(cfg.layout)
+    sA, sB = (_stream_prefill(cfg, scfg, params, dev, [[3, 1, 4, 1, 5], [9, 2]], 16,
+                              torch.Generator(device=dev).manual_seed(7)) for _ in range(2))
+    S = 12
+    attention = "decode_attention_" + ("int8" if kv_dtype == "int8" else "bf16")
+    with TRACER.on() as records:
+        for r in range(4):
+            counts = [dict(_build.launches)]
+            sA, outA = dec.decode_segment(cfg, scfg, eos, S, params, sA)
+            counts.append(dict(_build.launches))
+            with torch.inference_mode():
+                sB, outB = dec._segment_host(cfg, scfg, eos, S, params, sB)
+            counts.append(dict(_build.launches))
+            ran = [{k: b[k] - a[k] for k in a} for a, b in zip(counts, counts[1:])]
+            assert ran[0] == ran[1] and ran[0][attention] == S * cfg.n_layers, (r, ran)
+            torch.cuda.synchronize()
+            assert torch.equal(outA, outB), r
+            for n in ("token", "done", "lengths"):
+                assert torch.equal(getattr(sA, n), getattr(sB, n)), (r, n)
+            for a, b in zip(dec._cache_tensors(sA.cache), dec._cache_tensors(sB.cache)):
+                assert torch.equal(a, b), r
+    names = [rec.name for rec in records]
+    assert names.count("decode.capture") == 1 and names.count("decode.replay") == 3
+    assert int(sA.lengths[0]) == 1 + 4 * S
+
+
+def test_stream_graph_serves_every_later_stream(dev):
+    """Two streams of one pipeline with other prompt buckets (16 and 32),
+    interleaved segment by segment: one `decode.capture`, then
+    `decode.replay`s alone, and each stream's tokens, lengths and cache are
+    those of its host-index loop run alone."""
+    from neutts_tpu_torch import config
+    from neutts_tpu_torch.runtime import decode as dec
+    from neutts_tpu_torch.utils import TRACER
+
+    cfg, params = _stream_model(dev, "bfloat16")
+    eos = cfg.layout.speech_gen_end
+    scfg = config.SamplingConfig(greedy=True, min_new_tokens=10_000,
+                                 max_context=224).constrained_to(cfg.layout)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    streams = (([[3, 1, 4, 1, 5]], 16), ([list(range(3, 23))], 32))
+    graphed = [_stream_prefill(cfg, scfg, params, dev, p, b, gen) for p, b in streams]
+    alone = [_stream_prefill(cfg, scfg, params, dev, p, b, gen) for p, b in streams]
+    got, want = [[], []], [[], []]
+    with TRACER.on() as records:
+        for _ in range(3):
+            for j in (0, 1):
+                graphed[j], out = dec.decode_segment(cfg, scfg, eos, 10, params, graphed[j])
+                got[j].append(out)
+    with torch.inference_mode():
+        for j in (0, 1):
+            for _ in range(3):
+                alone[j], out = dec._segment_host(cfg, scfg, eos, 10, params, alone[j])
+                want[j].append(out)
+    names = [rec.name for rec in records if rec.name in ("decode.capture", "decode.replay")]
+    assert names == ["decode.capture"] + ["decode.replay"] * 5
+    torch.cuda.synchronize()
+    for j in (0, 1):
+        assert graphed[j].prompt_end == streams[j][1]
+        assert all(torch.equal(a, b) for a, b in zip(got[j], want[j])), j
+        assert torch.equal(graphed[j].lengths, alone[j].lengths)
+        for a, b in zip(dec._cache_tensors(graphed[j].cache), dec._cache_tensors(alone[j].cache)):
+            assert torch.equal(a, b), j
+
+
 @pytest.mark.parametrize("composition", ["tiny", "small_real"])
 def test_encoder_gpu_matches_cpu(dev, no_tf32, composition):
     """encode_reference(samples/demo.wav) on the card equals the CPU's codes,

@@ -166,6 +166,156 @@ def test_decode_segment_reads_nothing_from_the_device(jparams, monkeypatch):
     assert seg.shape == (2, 12) and state.step == 13
 
 
+# --- the device-index segment over a graph's static buffers ------------------------------
+#
+# On a CUDA device every float or int8 segment replays `_StreamGraph`'s captured
+# body; here its `run` executes the same body eagerly over the same static buffers,
+# with the same copy-in and clone-out as a replay.
+
+def _stream_model(kv_dtype, max_context=224):
+    """A TINY model (bf16 weights and activations for a bf16 cache), EOS held off."""
+    dtype = "bfloat16" if kv_dtype == "bfloat16" else "float32"
+    tc = config.TINY.scaled(kv_dtype=kv_dtype, dtype=dtype, max_context=max_context)
+    return tc, _sampling(config, 10_000, max_context=max_context), tbb.init_params(tc, seed=4,
+                                                                                   device="cpu")
+
+
+def _prefilled(tc, s, tp, prompts, bucket=16):
+    tt, tl = tdec.pad_prompts(prompts, pad_id=0, bucket=bucket, device="cpu")
+    return tdec.prefill_init(tc, s, EOS, tp, tt, tl)[0]
+
+
+def _twin(state):
+    """A state with copies of every tensor of `state`."""
+    cache = tbb.KVCache(*(t.clone() for t in tdec._cache_tensors(state.cache)))
+    return dataclasses.replace(state, cache=cache, token=state.token.clone(),
+                               done=state.done.clone(), lengths=state.lengths.clone())
+
+
+def _run(graph, state):
+    """A replay's `run`, with the eager body in the replay's place."""
+    with torch.inference_mode():
+        return graph.run(state, graph.body)
+
+
+def _held(graph):
+    """data_ptrs of a graph's static buffers."""
+    st = graph.static
+    return {t.data_ptr() for t in (*tdec._cache_tensors(st.cache), graph.index,
+                                   *(getattr(st, n) for n in tdec._STREAM_INPUTS))}
+
+
+@pytest.mark.parametrize("kv_dtype", ["bfloat16", "int8"])
+def test_stream_graph_body_matches_host_loop(kv_dtype):
+    """Three 10-step segments of the device-index body over a graph's static
+    buffers equal the host-index loop's: tokens, done, lengths and the cache
+    bytes (int8: values and scales)."""
+    tc, s, tp = _stream_model(kv_dtype)
+    host = _prefilled(tc, s, tp, [[3, 1, 4, 1, 5, 9, 2, 6], [2, 7, 1]])
+    dev = _twin(host)
+    graph = tdec._StreamGraph(tc, s, EOS, 10, tp, dev)
+    for r in range(3):
+        with torch.inference_mode():
+            host, want = tdec._segment_host(tc, s, EOS, 10, tp, host)
+        dev, got = _run(graph, dev)
+        assert torch.equal(got, want), r
+        for n in ("token", "done", "lengths"):
+            assert torch.equal(getattr(dev, n), getattr(host, n)), (r, n)
+        assert (dev.step, dev.prompt_end) == (host.step, host.prompt_end)
+        for a, b in zip(tdec._cache_tensors(dev.cache), tdec._cache_tensors(host.cache)):
+            assert torch.equal(a, b), r
+    assert len(tdec._cache_tensors(dev.cache)) == (4 if kv_dtype == "int8" else 2)
+    assert not dev.done.any() and dev.lengths.tolist() == [31, 31]
+
+
+def test_stream_graph_serves_interleaved_streams():
+    """Two streams of other prompt buckets (16 and 32) take turns, segment by
+    segment, on one graph: each gets the tokens, lengths and cache it gets
+    alone through `decode_segment`."""
+    tc, s, tp = _stream_model("bfloat16")
+    alone, shared = [], []
+    for prompts, bucket in (([[3, 1, 4, 1, 5]], 16), ([list(range(3, 23))], 32)):
+        st = _prefilled(tc, s, tp, prompts, bucket)
+        shared.append(_twin(st))
+        outs = []
+        for _ in range(3):
+            st, out = tdec.decode_segment(tc, s, EOS, 8, tp, st)
+            outs.append(out)
+        alone.append((st, outs))
+    graph = tdec._StreamGraph(tc, s, EOS, 8, tp, shared[0])
+    got = [[], []]
+    for _ in range(3):
+        for j in (0, 1):
+            shared[j], out = _run(graph, shared[j])
+            got[j].append(out)
+    for j, (st, outs) in enumerate(alone):
+        assert shared[j].prompt_end == (16, 32)[j]
+        assert all(torch.equal(a, b) for a, b in zip(got[j], outs)), j
+        assert torch.equal(shared[j].lengths, st.lengths)
+        for a, b in zip(tdec._cache_tensors(shared[j].cache), tdec._cache_tensors(st.cache)):
+            assert torch.equal(a, b), j
+    assert not torch.equal(got[0][0], got[1][0])
+
+
+def test_stream_graph_past_the_physical_cache(jparams):
+    """`test_decode_segment_past_the_physical_cache` through a graph's static
+    buffers: segments of 200 and 60 steps run past the 256-slot cache, whose
+    steps past its end clamp their write to the last slot and emit EOS."""
+    jout, _, _ = _segments_both(jparams, "float32", 256, [200, 60],
+                                prompts=[list(range(3, 19)), [2, 7, 1, 8]])
+    tc = config.TINY.scaled(kv_dtype="float32", max_context=256)
+    ts = _sampling(config, 10_000, max_context=256)
+    tp = params_from_numpy(jax.tree_util.tree_map(np.asarray, jparams), "cpu")
+    tt, tl = tdec.pad_prompts([list(range(3, 19)), [2, 7, 1, 8]], pad_id=0, bucket=16,
+                              device="cpu")
+    state, _ = tdec.prefill_init(tc, ts, EOS, tp, tt, tl)
+    assert state.cache.max_len == 256
+    for n, (jt, jd, jl) in zip((200, 60), jout[1:]):
+        graph = tdec._StreamGraph(tc, ts, EOS, n, tp, state)
+        state, seg = _run(graph, state)
+        np.testing.assert_array_equal(seg.numpy(), jt)
+        np.testing.assert_array_equal(state.done.numpy(), jd)
+        np.testing.assert_array_equal(state.lengths.numpy(), jl)
+    assert state.lengths.tolist() == [241, 241] and (seg[:, -10:] == EOS).all()
+
+
+def test_stream_graph_returns_fresh_tensors():
+    """No returned tensor aliases a static buffer, and a later run leaves
+    an earlier run's tensors as they were (the benchmark keeps every
+    segment's tokens until its window ends)."""
+    tc, s, tp = _stream_model("int8")
+    state = _prefilled(tc, s, tp, [[3, 1, 4, 1, 5], [9, 2]])
+    graph = tdec._StreamGraph(tc, s, EOS, 6, tp, state)
+    first, out = _run(graph, state)
+    kept = [t.clone() for t in (out, first.token, first.done, first.lengths)]
+    returned = (out, first.token, first.done, first.lengths)
+    assert not _held(graph) & {t.data_ptr() for t in returned}
+    assert first.cache is state.cache and first.pad is state.pad
+    second, out2 = _run(graph, first)
+    assert not _held(graph) & {t.data_ptr() for t in (out2, second.token, second.done,
+                                                     second.lengths)}
+    assert all(torch.equal(a, b) for a, b in zip(returned, kept))
+    assert second.step == first.step + 6
+
+
+def test_stream_graph_run_reads_nothing_from_the_device(monkeypatch):
+    """Making a graph's buffers, copying a state in, filling the index, the
+    body and the copy back out turn no tensor into a Python value."""
+    tc, s, tp = _stream_model("bfloat16")
+    state = _prefilled(tc, s, tp, [[3, 1, 4, 1, 5], [9, 2]])
+
+    def refuse(*a, **k):
+        raise AssertionError("host read inside a stream segment")
+
+    for name in ("item", "tolist", "__bool__", "__int__", "numpy"):
+        monkeypatch.setattr(torch.Tensor, name, refuse)
+    graph = tdec._StreamGraph(tc, s, EOS, 12, tp, state)
+    state, seg = _run(graph, state)
+    monkeypatch.undo()
+    assert seg.shape == (2, 12) and state.step == 13
+    assert graph.index.tolist() == [16, 1]  # (slot of the first fed token, step)
+
+
 # --- chunked vocoder ------------------------------------------------------------------
 
 
