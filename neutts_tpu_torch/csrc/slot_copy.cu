@@ -114,8 +114,8 @@ __device__ __forceinline__ uint4 pack4(uint4 lo, uint4 hi) {
 // half the bytes), and an inactive row costs 6 (int4 3) blocks that read
 // two words.
 //
-// Measured on an H100 (tools/probe_reconcile.py, against the one block per
-// (row, layer) of 256 threads that it replaced, at the Air serving shape):
+// Measured on an H100 (against the one block per (row, layer) of 256
+// threads that it replaced, at the Air serving shape):
 // no faster where it counts. The replaced kernel already moved the data
 // near the card's rate; this one launches 4-8x fewer blocks, so with no
 // row active it takes ~0.0025 ms against ~0.0038 (warm L2), but with half

@@ -135,7 +135,7 @@ def _split_workspace(device, stream: int, B: int, K: int, G: int, D: int, nparts
     That is safe because each launch leaves the counters at 0 and launches
     on one stream run in order. A CUDA graph bakes in the workspace of the
     stream it was captured on, so it is replayed on that stream alone
-    (`runtime/batching.py` `_capture_stream`)."""
+    (`runtime/graph.py` `_capture_stream`)."""
     key = (device.index, stream, B, K, G, D, nparts)
     ws = _split_ws.get(key)
     if ws is None:

@@ -31,14 +31,13 @@ replaced by new tensors, never written in place, so a tensor read from the
 state stays valid after the next call. Nothing here reads a value back to
 the host: a whole segment is queued without a synchronisation.
 
-On a CUDA device a staged segment is ONE CUDA graph launch: the first call
-for a state and step count runs the segment eagerly, then captures it
-(`_SegmentGraph`: static per-slot buffers, copied in before each replay and
-cloned out after it); every later call replays the graph. First calls,
-captures and replays run on one side stream per device, ordered after the
-caller's stream's queued work and before its later work. The segment's
-host ints (the staging column, the layer, n_steps, the cache length) are
-the same in every segment, and all that changes lives on the device.
+On a CUDA device a staged segment is ONE CUDA graph launch
+(`runtime/graph.py`): the first call for a state and step count runs the
+segment eagerly, then captures it (`_SegmentGraph`: static per-slot
+buffers, copied in before each replay and cloned out after it); every
+later call replays the graph. The segment's host ints (the staging
+column, the layer, n_steps, the cache length) are the same in every
+segment.
 
 An LFM2-MoE config (`config.Lfm2Config`, `models/lfm2.py`) keeps two kinds
 of state side by side: the KV cache of its attention layers alone (the
@@ -50,9 +49,7 @@ expert took in each MoE layer and the steps in which it took any, in place,
 inside the captured segment too.
 
 Spans (`neutts_tpu_torch.utils`): each eager step is a `decode.step`; a
-replay is one `decode.replay`, a first call's run and capture one
-`decode.capture` (both with attribute `steps`); the captured body records
-none.
+replay and a capture are spans of `runtime/graph.py`.
 """
 
 from __future__ import annotations
@@ -66,9 +63,9 @@ import torch
 from neutts_tpu_torch.config import BackboneConfig, SamplingConfig, round_up
 from neutts_tpu_torch.models import backbone as bb
 from neutts_tpu_torch.models import lfm2
-from neutts_tpu_torch.ops import _build
 from neutts_tpu_torch.ops import attention as attn_ops
 from neutts_tpu_torch.ops import sampling as smp
+from neutts_tpu_torch.runtime import graph
 from neutts_tpu_torch.runtime.decode import PROMPT_BUCKETS
 from neutts_tpu_torch.utils import span
 
@@ -346,43 +343,28 @@ def _staged_segment(cfg, sampling, eos_id, n_steps, params, state, traced):
 
 
 _SLOT_INPUTS = ("token", "lens", "pad", "prompt_lens", "active")
-_capture_streams: Dict[int, "torch.cuda.Stream"] = {}  # device index -> capture stream
 
 
-def _capture_stream(dev: torch.device) -> "torch.cuda.Stream":
-    """The device's side stream for every graph's first call, capture and
-    replay. A capture must run on a stream other than the default one; the
-    replays run on the capture's stream, so the split-K workspace the graph
-    baked in (`attention._split_workspace`, keyed by stream) is used by
-    launches of that stream alone, in order."""
-    s = _capture_streams.get(dev.index)
-    if s is None:
-        s = _capture_streams[dev.index] = torch.cuda.Stream(dev)
-    return s
-
-
-class _SegmentGraph:
+class _SegmentGraph(graph.SegmentGraph):
     """One staged segment of a state (staging allocation, n_steps steps,
     reconcile) over static per-slot buffers of its own, replayable as one
     CUDA graph.
 
     `run` copies a state's per-slot tensors into the buffers, runs the
     segment and replaces the state's token, lens and active by clones of
-    the results: the state's tensors are never written and no returned
-    tensor aliases a buffer. The body bakes in the state's cache and
-    generator, n_steps, the config, the params, the sampling config and
-    eos_id, and an LFM2 state's conv state and expert counts, which it
-    updates in place; `serves` tells whether a call may replay it. `launches` holds
-    the kernel wrappers' launches of one replay (`_build.launches`)."""
+    the results: the state's tensors are never written. The body bakes in
+    the state's cache and generator, n_steps, the config, the params, the
+    sampling config and eos_id, and an LFM2 state's conv state and expert
+    counts, which it updates in place; `serves` tells whether a call may
+    replay it."""
+
+    outputs = ("token", "lens", "active")
 
     def __init__(self, cfg, sampling, eos_id, n_steps, params, state: SlotState):
-        self.args = (cfg, sampling, eos_id, n_steps, params)
+        super().__init__(cfg, sampling, eos_id, n_steps, params)
         self.buffers = _state_buffers(state)
         self.static = dataclasses.replace(
             state, graphs={}, **{n: getattr(state, n).clone() for n in _SLOT_INPUTS})
-        self.graph = None
-        self.result = None  # the captured body's (outs, token, lens, active)
-        self.launches: Dict[str, int] = {}
 
     def serves(self, cfg, sampling, eos_id, params, state: SlotState) -> bool:
         c, s, e, _, p = self.args
@@ -401,55 +383,6 @@ class _SegmentGraph:
         state.token, state.lens, state.active = token.clone(), lens.clone(), active.clone()
         return state, outs.clone()
 
-    def launch(self, state: SlotState, segment) -> Tuple[SlotState, torch.Tensor]:
-        """`run` on the capture stream, after the caller's stream's queued
-        work and before its later work."""
-        dev = state.token.device
-        stream, here = _capture_stream(dev), torch.cuda.current_stream(dev)
-        stream.wait_stream(here)
-        with torch.cuda.stream(stream):
-            state, outs = self.run(state, segment)
-        here.wait_stream(stream)
-        for t in (outs, state.token, state.lens, state.active):
-            t.record_stream(here)
-        return state, outs
-
-    def replay(self):
-        self.graph.replay()
-        for name, n in self.launches.items():
-            _build.launches[name] += n
-        return self.result
-
-    def capture(self, state: SlotState) -> Tuple[SlotState, torch.Tensor]:
-        """The first call: one eager segment on the capture stream, which
-        allocates the split-K workspace and the BLAS handle's workspace
-        outside the graph's pool and is the call's result; then the body's
-        capture. Non-greedy sampling registers the state's generator, so
-        each replay draws fresh noise. The capture launches nothing, so the
-        wrappers' counts of it move to the replays."""
-        state, outs = self.launch(state, lambda: self.body(traced=True))
-        # the graph's private pool cannot take blocks the caching allocator
-        # holds free (after an LFM2 admission, tens of GB): hand them back
-        # first (once a state and step count)
-        torch.cuda.empty_cache()
-        graph = torch.cuda.CUDAGraph()
-        if not self.args[1].greedy:
-            graph.register_generator_state(state.generator)
-        before = dict(_build.launches)
-        with torch.cuda.stream(_capture_stream(state.token.device)):
-            # thread-local: other threads' CUDA calls may go on during the capture
-            graph.capture_begin(capture_error_mode="thread_local")
-            try:
-                self.result = self.body()
-            finally:
-                graph.capture_end()
-        for name, n in _build.launches.items():
-            if n != before[name]:
-                self.launches[name] = n - before[name]
-                _build.launches[name] = before[name]
-        self.graph = graph
-        return state, outs
-
 
 def _state_buffers(state: SlotState) -> tuple:
     """The buffers a segment writes in place: the cache, an LFM2 conv state
@@ -459,29 +392,20 @@ def _state_buffers(state: SlotState) -> tuple:
         state.conv, state.expert_rows)
 
 
-def _graphs_supported(sampling: SamplingConfig) -> bool:
-    """Greedy decoding draws no noise; sampling needs the generator
-    registered with the graph, which this PyTorch may not offer."""
-    return sampling.greedy or hasattr(torch.cuda.CUDAGraph, "register_generator_state")
-
-
 @torch.inference_mode()
 def _decode_steps_graphed(cfg, sampling, eos_id, n_steps, params, state):
     """A staged segment on a CUDA device: the replay of the state's graph for
     n_steps, captured on the first call (`_SegmentGraph`)."""
-    if not _graphs_supported(sampling):
+    if not graph.supported(sampling):
         return _decode_steps_staged(cfg, sampling, eos_id, n_steps, params, state)
-    with torch.cuda.device(state.token.device):
-        seg = state.graphs.pop(n_steps, None)
-        if seg is not None and seg.serves(cfg, sampling, eos_id, params, state):
-            state.graphs[n_steps] = seg
-            with span("decode.replay", steps=n_steps):
-                return seg.launch(state, seg.replay)
-        seg = _SegmentGraph(cfg, sampling, eos_id, n_steps, params, state)
-        with span("decode.capture", steps=n_steps):
-            state, outs = seg.capture(state)
-        state.graphs[n_steps] = seg  # kept once captured
-        return state, outs
+    seg = state.graphs.pop(n_steps, None)
+    if seg is not None and seg.serves(cfg, sampling, eos_id, params, state):
+        state.graphs[n_steps] = seg
+        return seg.replay(state)
+    seg = _SegmentGraph(cfg, sampling, eos_id, n_steps, params, state)
+    state, outs = seg.capture(state)
+    state.graphs[n_steps] = seg  # kept once captured
+    return state, outs
 
 
 @torch.inference_mode()

@@ -16,17 +16,14 @@ The JAX loop is one jitted `lax.while_loop`; here `generate` is a Python
 loop that reads one flag from the device per step to stop early, and
 `decode_segment` runs its steps with no read of the device at all. Its
 steps take their cache slots from a device index, so on a CUDA device the
-whole segment is ONE CUDA graph launch: the first call of a key (config,
-sampling, params, generator, batch, cache shape, n_steps) runs the segment
-eagerly and captures it (`_StreamGraph`), and every later segment of every
-stream of that key replays it, on the capture stream of the serving graphs
-(`batching._capture_stream`), ordered both ways with the caller's stream.
-An int4 cache keeps the host-index loop.
+whole segment is ONE CUDA graph launch (`runtime/graph.py`): the first
+call of a key (config, sampling, params, generator, batch, cache shape,
+n_steps) runs the segment eagerly and captures it (`_StreamGraph`), and
+every later segment of every stream of that key replays it. An int4 cache
+keeps the host-index loop.
 
 Spans (`neutts_tpu_torch.utils`): each eager step is a `decode.step`; a
-replay is one `decode.replay`, a first call's run and capture one
-`decode.capture` (both with attribute `steps`); the captured body records
-none.
+replay and a capture are spans of `runtime/graph.py`.
 """
 
 from __future__ import annotations
@@ -41,10 +38,10 @@ import torch
 
 from neutts_tpu_torch.config import BackboneConfig, SamplingConfig, resolve_kv_dtype, round_up
 from neutts_tpu_torch.models import backbone as bb
-from neutts_tpu_torch.ops import _build
 from neutts_tpu_torch.ops import attention as attn_ops
 from neutts_tpu_torch.ops import sampling as smp
 from neutts_tpu_torch.parallel import tensor as tp_ops
+from neutts_tpu_torch.runtime import graph
 from neutts_tpu_torch.utils import span
 
 # Dense 64-step prompt buckets, as in the JAX package.
@@ -366,15 +363,12 @@ def _cache_tensors(cache: bb.KVCache) -> list:
 
 
 def _graphs_supported(sampling: SamplingConfig, state: DecodeState) -> bool:
-    """`batching._graphs_supported`; sampling from the default generator
-    (no `state.generator`) stays eager."""
-    from neutts_tpu_torch.runtime import batching
-
-    return batching._graphs_supported(sampling) and (
-        sampling.greedy or state.generator is not None)
+    """`graph.supported`; sampling from the default generator (no
+    `state.generator`) stays eager."""
+    return graph.supported(sampling) and (sampling.greedy or state.generator is not None)
 
 
-class _StreamGraph:
+class _StreamGraph(graph.SegmentGraph):
     """One segment of `_segment_body` over static buffers of its own (a
     cache of the streams' shape, token, done, lengths, pad and the index),
     replayable as one CUDA graph, and shared by every stream of its key.
@@ -382,20 +376,18 @@ class _StreamGraph:
     `run` copies a state's cache and tensors into the buffers and fills the
     index, runs the segment, copies the cache back into the state's own and
     returns clones of the rest: of the state's tensors only its cache is
-    written, no returned tensor aliases a buffer, and streams of one key may
-    take turns segment by segment. The body bakes in the config, the sampling
-    config, eos_id, n_steps, the params and the generator. `launches` holds
-    the kernel wrappers' launches of one replay (`_build.launches`)."""
+    written, and streams of one key may take turns segment by segment. The
+    body bakes in the config, the sampling config, eos_id, n_steps, the
+    params and the generator."""
+
+    outputs = ("token", "done", "lengths")
 
     def __init__(self, cfg, sampling, eos_id, n_steps, params, state: DecodeState):
-        self.args = (cfg, sampling, eos_id, n_steps, params)
+        super().__init__(cfg, sampling, eos_id, n_steps, params)
         self.static = dataclasses.replace(
             state, cache=bb.KVCache(*(torch.empty_like(t) for t in _cache_tensors(state.cache))),
             **{n: torch.empty_like(getattr(state, n)) for n in _STREAM_INPUTS})
         self.index = torch.zeros(2, dtype=torch.int32, device=state.token.device)
-        self.graph = None
-        self.result = None  # the captured body's (tokens, token, done, lengths)
-        self.launches: Dict[str, int] = {}
 
     def body(self, traced: bool = False):
         """The segment over the static buffers (the captured body)."""
@@ -414,55 +406,6 @@ class _StreamGraph:
         return (_advanced(state, self.args[3], token.clone(), done.clone(), lengths.clone()),
                 out.clone())
 
-    def launch(self, state: DecodeState, segment) -> Tuple[DecodeState, torch.Tensor]:
-        """`run` on the device's capture stream (`batching._capture_stream`),
-        after the caller's stream's queued work and before its later work."""
-        from neutts_tpu_torch.runtime import batching
-
-        dev = state.token.device
-        stream, here = batching._capture_stream(dev), torch.cuda.current_stream(dev)
-        stream.wait_stream(here)
-        with torch.cuda.stream(stream):
-            state, out = self.run(state, segment)
-        here.wait_stream(stream)
-        for t in (out, state.token, state.done, state.lengths):
-            t.record_stream(here)
-        return state, out
-
-    def replay(self):
-        self.graph.replay()
-        for name, n in self.launches.items():
-            _build.launches[name] += n
-        return self.result
-
-    def capture(self, state: DecodeState) -> Tuple[DecodeState, torch.Tensor]:
-        """The first call: one eager segment on the capture stream, which
-        allocates the split-K workspace and the BLAS handle's workspace
-        outside the graph's pool and is the call's result; then the body's
-        capture. Non-greedy sampling registers the generator, so each
-        replay draws fresh noise. The capture launches nothing, so the
-        wrappers' counts of it move to the replays."""
-        from neutts_tpu_torch.runtime import batching
-
-        state, out = self.launch(state, lambda: self.body(traced=True))
-        torch.cuda.empty_cache()  # the graph's private pool takes no cached free block
-        graph = torch.cuda.CUDAGraph()
-        if not self.args[1].greedy:
-            graph.register_generator_state(self.static.generator)
-        before = dict(_build.launches)
-        with torch.cuda.stream(batching._capture_stream(state.token.device)):
-            graph.capture_begin(capture_error_mode="thread_local")
-            try:
-                self.result = self.body()
-            finally:
-                graph.capture_end()
-        for name, n in _build.launches.items():
-            if n != before[name]:
-                self.launches[name] = n - before[name]
-                _build.launches[name] = before[name]
-        self.graph = graph
-        return state, out
-
 
 def _segment_graphed(cfg, sampling, eos_id, n_steps, params, state: DecodeState):
     """A segment on a CUDA device: the replay of its key's graph, captured on
@@ -474,18 +417,14 @@ def _segment_graphed(cfg, sampling, eos_id, n_steps, params, state: DecodeState)
     key = (cfg, sampling, eos_id, n_steps, id(params), id(state.generator),
            state.token.shape[0], cache.max_len, cache.k.dtype,
            smp.use_speech_head(cfg, sampling, params))
-    dev = state.token.device
-    store = _stream_graphs.setdefault(dev.index, {})
-    with torch.cuda.device(dev):
-        seg = store.pop(key, None)
-        if seg is None:
-            seg = _StreamGraph(cfg, sampling, eos_id, n_steps, params, state)
-            with span("decode.capture", steps=n_steps):
-                state, out = seg.capture(state)
-        else:
-            with span("decode.replay", steps=n_steps):
-                state, out = seg.launch(state, seg.replay)
-        store[key] = seg  # the most recently used last
-        while len(store) > _GRAPHS_KEPT:
-            del store[next(iter(store))]
-        return state, out
+    store = _stream_graphs.setdefault(state.token.device.index, {})
+    seg = store.pop(key, None)
+    if seg is None:
+        seg = _StreamGraph(cfg, sampling, eos_id, n_steps, params, state)
+        state, out = seg.capture(state)
+    else:
+        state, out = seg.replay(state)
+    store[key] = seg  # the most recently used last
+    while len(store) > _GRAPHS_KEPT:
+        del store[next(iter(store))]
+    return state, out

@@ -139,6 +139,39 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert not bad, bad
 
 
+def _imported_names(path: Path, package: str):
+    """Every module or name an import of `path` (a module of `package`)
+    reaches, at any level, functions included, relative imports resolved:
+    `from a import b` gives both `a` and `a.b`."""
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom):
+            parts = package.split(".")
+            base = parts[:len(parts) + 1 - node.level] if node.level else []
+            mod = ".".join(base + ([node.module] if node.module else []))
+            yield mod
+            yield from (f"{mod}.{a.name}" for a in node.names)
+
+
+def test_runtime_imports_point_one_way():
+    """The stream's decode loop and the CUDA-graph mechanism depend on
+    neither the serving core (`runtime.batching`) nor the layers above it
+    (`serving`, `pipeline`): `batching` builds on `decode` and `graph`,
+    `decode` on `graph`."""
+    runtime = ROOT / "neutts_tpu_torch" / "runtime"
+    above = ("neutts_tpu_torch.runtime.batching", "neutts_tpu_torch.serving",
+             "neutts_tpu_torch.pipeline")
+    bad = []
+    for name in ("decode", "graph"):
+        for mod in _imported_names(runtime / f"{name}.py", "neutts_tpu_torch.runtime"):
+            if any(mod == a or mod.startswith(a + ".") for a in above):
+                bad.append(f"{name}.py: {mod}")
+    assert not bad, bad
+    uses = set(_imported_names(runtime / "batching.py", "neutts_tpu_torch.runtime"))
+    assert {"neutts_tpu_torch.runtime.graph", "neutts_tpu_torch.runtime.decode"} <= uses
+
+
 def test_default_device_is_cuda():
     """Without a GPU the default device raises; only device='cpu' runs on the
     CPU (no silent fallback)."""

@@ -879,7 +879,9 @@ def test_stream_graph_matches_eager(dev, kv_dtype, greedy):
     segment's CUDA graph) against the host-index loop over four 12-step
     segments: tokens, done, lengths and the cache bytes equal. Top-k
     sampling draws the same noise from a registered generator of the same
-    seed. A replay adds the eager segment's launches to `_build.launches`."""
+    seed. A replay adds the eager segment's launches to `_build.launches`,
+    the graph's count of one replay, and no returned tensor aliases the
+    graph's buffers or captured result."""
     from neutts_tpu_torch import config
     from neutts_tpu_torch.runtime import decode as dec
     from neutts_tpu_torch.utils import TRACER
@@ -902,6 +904,12 @@ def test_stream_graph_matches_eager(dev, kv_dtype, greedy):
             counts.append(dict(_build.launches))
             ran = [{k: b[k] - a[k] for k in a} for a, b in zip(counts, counts[1:])]
             assert ran[0] == ran[1] and ran[0][attention] == S * cfg.n_layers, (r, ran)
+            seg = list(dec._stream_graphs[sA.token.device.index].values())[-1]
+            assert seg.launches == {k: n for k, n in ran[1].items() if n}, r
+            held = {t.data_ptr() for t in (*seg.result, seg.index,
+                                           *dec._cache_tensors(seg.static.cache),
+                                           *(getattr(seg.static, n) for n in dec._STREAM_INPUTS))}
+            assert not held & {t.data_ptr() for t in (outA, sA.token, sA.done, sA.lengths)}
             torch.cuda.synchronize()
             assert torch.equal(outA, outB), r
             for n in ("token", "done", "lengths"):
