@@ -37,7 +37,9 @@ segment eagerly, then captures it (`_SegmentGraph`: static per-slot
 buffers, copied in before each replay and cloned out after it); every
 later call replays the graph. The segment's host ints (the staging
 column, the layer, n_steps, the cache length) are the same in every
-segment.
+segment. An admission is one graph launch too (`_AdmitGraph`), one graph
+per state and shape (G rows, bucket Lp) over static inputs, all of a
+state's admission graphs in one memory pool.
 
 An LFM2-MoE config (`config.Lfm2Config`, `models/lfm2.py`) keeps two kinds
 of state side by side: the KV cache of its attention layers alone (the
@@ -49,7 +51,8 @@ expert took in each MoE layer and the steps in which it took any, in place,
 inside the captured segment too.
 
 Spans (`neutts_tpu_torch.utils`): each eager step is a `decode.step`; a
-replay and a capture are spans of `runtime/graph.py`.
+replay and a capture, of a segment or an admission, are spans of
+`runtime/graph.py`.
 """
 
 from __future__ import annotations
@@ -110,6 +113,9 @@ class SlotState:
     # captured staged segments by step count (CUDA devices; see `_SegmentGraph`)
     graphs: Dict[int, "_SegmentGraph"] = dataclasses.field(default_factory=dict, repr=False,
                                                            compare=False)
+    # captured admissions by (G, Lp) (CUDA devices; see `_AdmitGraph`)
+    admit_graphs: Dict[Tuple[int, int], "_AdmitGraph"] = dataclasses.field(
+        default_factory=dict, repr=False, compare=False)
 
     @staticmethod
     def create(cfg: BackboneConfig, n_slots: int, device, seed: int = 0) -> "SlotState":
@@ -169,12 +175,33 @@ def prefill_slots(cfg: BackboneConfig, sampling: SamplingConfig, eos_id: int, pa
     prefill. Duplicate slots must carry identical rows (the engine pads a
     partial group by repeating its last admission); only the first
     occurrence is written. An int4 cache needs an even Lp. Returns `state`,
-    updated."""
+    updated. On a CUDA device the admission replays the state's captured
+    graph for its shape (`_AdmitGraph`); on the CPU it runs eagerly."""
+    if state.cache.int4 and tokens.shape[1] % 2:
+        raise ValueError(f"an int4 cache takes even admission buckets, got Lp={tokens.shape[1]}")
+    if state.token.is_cuda and graph.supported(sampling):
+        return _prefill_slots_graphed(cfg, sampling, eos_id, params, state, tokens, true_lens,
+                                      slots)
+    return _prefill_slots_eager(cfg, sampling, eos_id, params, state, tokens, true_lens, slots)
+
+
+@torch.inference_mode()
+def _prefill_slots_eager(cfg, sampling, eos_id, params, state, tokens, true_lens, slots):
+    """The admission, eagerly: the oracle of the captured admission and the
+    CPU's path."""
+    for name, t in zip(_SLOT_INPUTS, _admit(cfg, sampling, eos_id, params, state, tokens,
+                                            true_lens, slots)):
+        setattr(state, name, t)
+    return state
+
+
+def _admit(cfg, sampling, eos_id, params, state: SlotState, tokens, true_lens, slots):
+    """One admission group over `state`: the batched prefill, the cache
+    writes and the first tokens. Writes the cache (and an LFM2 conv state)
+    alone; returns the per-slot tensors of `_SLOT_INPUTS`, all new."""
     G, Lp = tokens.shape
     dev = tokens.device
     cache = state.cache
-    if cache.int4 and Lp % 2:
-        raise ValueError(f"an int4 cache takes even admission buckets, got Lp={Lp}")
     # first occurrence of each slot: duplicates take the primary row's values
     ar = torch.arange(G, device=dev)
     src = torch.where(slots[:, None] == slots[None, :], ar[None, :], G).amin(dim=1)
@@ -221,12 +248,9 @@ def prefill_slots(cfg: BackboneConfig, sampling: SamplingConfig, eos_id: int, pa
     first = smp.sample_from_hidden(cfg, sampling, params, h, state.generator, eos_id,
                                    0 < sampling.min_new_tokens)[src]  # [G]
     pads = (Lp - true_lens).to(torch.int32)
-    state.token = state.token.index_put((rows,), first)
-    state.lens = state.lens.index_fill(0, rows, Lp)
-    state.pad = state.pad.index_put((rows,), pads)
-    state.prompt_lens = state.prompt_lens.index_fill(0, rows, Lp)
-    state.active = state.active.index_put((rows,), first != eos_id)
-    return state
+    return (state.token.index_put((rows,), first), state.lens.index_fill(0, rows, Lp),
+            state.pad.index_put((rows,), pads), state.prompt_lens.index_fill(0, rows, Lp),
+            state.active.index_put((rows,), first != eos_id))
 
 
 def prefill_slot(cfg: BackboneConfig, sampling: SamplingConfig, eos_id: int, params,
@@ -345,7 +369,32 @@ def _staged_segment(cfg, sampling, eos_id, n_steps, params, state, traced):
 _SLOT_INPUTS = ("token", "lens", "pad", "prompt_lens", "active")
 
 
-class _SegmentGraph(graph.SegmentGraph):
+class _SlotGraph(graph.SegmentGraph):
+    """A graph over a `SlotState`: static per-slot tensors of its own,
+    copied in from each call's state (`_load`), and the state's cache and
+    generator, and an LFM2 state's conv state and expert counts, baked in
+    and written in place. Its `args` end with the params; `serves` tells
+    whether a call may replay it."""
+
+    def __init__(self, state: SlotState, *args, **attrs):
+        super().__init__(*args, **attrs)
+        self.buffers = _state_buffers(state)
+        self.static = dataclasses.replace(
+            state, graphs={}, admit_graphs={},
+            **{n: getattr(state, n).clone() for n in _SLOT_INPUTS})
+
+    def serves(self, cfg, sampling, eos_id, params, state: SlotState) -> bool:
+        c, s, e = self.args[:3]
+        return (self.args[-1] is params and c == cfg and s == sampling and e == eos_id
+                and self.static.generator is state.generator
+                and all(a is b for a, b in zip(self.buffers, _state_buffers(state))))
+
+    def _load(self, state: SlotState) -> None:
+        for name in _SLOT_INPUTS:
+            getattr(self.static, name).copy_(getattr(state, name))
+
+
+class _SegmentGraph(_SlotGraph):
     """One staged segment of a state (staging allocation, n_steps steps,
     reconcile) over static per-slot buffers of its own, replayable as one
     CUDA graph.
@@ -353,43 +402,81 @@ class _SegmentGraph(graph.SegmentGraph):
     `run` copies a state's per-slot tensors into the buffers, runs the
     segment and replaces the state's token, lens and active by clones of
     the results: the state's tensors are never written. The body bakes in
-    the state's cache and generator, n_steps, the config, the params, the
-    sampling config and eos_id, and an LFM2 state's conv state and expert
-    counts, which it updates in place; `serves` tells whether a call may
-    replay it."""
+    n_steps, the config, the params, the sampling config and eos_id."""
 
     outputs = ("token", "lens", "active")
 
     def __init__(self, cfg, sampling, eos_id, n_steps, params, state: SlotState):
-        super().__init__(cfg, sampling, eos_id, n_steps, params)
-        self.buffers = _state_buffers(state)
-        self.static = dataclasses.replace(
-            state, graphs={}, **{n: getattr(state, n).clone() for n in _SLOT_INPUTS})
-
-    def serves(self, cfg, sampling, eos_id, params, state: SlotState) -> bool:
-        c, s, e, _, p = self.args
-        return (p is params and c == cfg and s == sampling and e == eos_id
-                and self.static.generator is state.generator
-                and all(a is b for a, b in zip(self.buffers, _state_buffers(state))))
+        super().__init__(state, cfg, sampling, eos_id, n_steps, params, steps=n_steps)
 
     def body(self, traced: bool = False):
         """The segment over the static buffers (the captured body)."""
         return _staged_segment(*self.args, self.static, traced)
 
     def run(self, state: SlotState, segment) -> Tuple[SlotState, torch.Tensor]:
-        for name in _SLOT_INPUTS:
-            getattr(self.static, name).copy_(getattr(state, name))
+        self._load(state)
         outs, token, lens, active = segment()
         state.token, state.lens, state.active = token.clone(), lens.clone(), active.clone()
         return state, outs.clone()
 
 
+class _AdmitGraph(_SlotGraph):
+    """One admission shape of a state (G rows, bucket Lp) over static
+    inputs (tokens [G, Lp], true lengths and slots [G]) and per-slot
+    buffers of its own, replayable as one CUDA graph.
+
+    `run` copies the call's inputs and the state's per-slot tensors into
+    the buffers, runs the admission and replaces all five per-slot tensors
+    of the state by clones of the results; the cache and an LFM2 conv state
+    are written in place. A state's admission graphs share one memory pool:
+    they replay one at a time on one stream, and each replay's results are
+    cloned out before the next."""
+
+    kind = "admit"
+    outputs = _SLOT_INPUTS
+
+    def __init__(self, cfg, sampling, eos_id, params, state: SlotState, G: int, Lp: int,
+                 pool=None):
+        super().__init__(state, cfg, sampling, eos_id, params, rows=G, bucket=Lp)
+        self.pool = pool
+        dev = state.token.device
+        self.inputs = (torch.zeros((G, Lp), dtype=torch.int32, device=dev),
+                       torch.zeros((G,), dtype=torch.int32, device=dev),
+                       torch.zeros((G,), dtype=torch.int32, device=dev))
+
+    def body(self, traced: bool = False):
+        """The admission over the static buffers (the captured body)."""
+        return _admit(*self.args, self.static, *self.inputs)
+
+    def run(self, state: SlotState, segment, tokens, true_lens, slots) -> Tuple[SlotState, None]:
+        self._load(state)
+        for mine, t in zip(self.inputs, (tokens, true_lens, slots)):
+            mine.copy_(t)
+        for name, t in zip(_SLOT_INPUTS, segment()):
+            setattr(state, name, t.clone())
+        return state, None
+
+
 def _state_buffers(state: SlotState) -> tuple:
-    """The buffers a segment writes in place: the cache, an LFM2 conv state
-    and expert counts."""
+    """The buffers a segment or an admission writes in place: the cache, an
+    LFM2 conv state and expert counts."""
     cache = state.cache
     return tuple(getattr(cache, f.name) for f in dataclasses.fields(cache)) + (
         state.conv, state.expert_rows)
+
+
+def _replay_or_capture(store: dict, key, make, cfg, sampling, eos_id, params,
+                       state: SlotState, *inputs):
+    """The graph `store` keeps for `key`, replayed if it serves the call;
+    else `make()`'s graph, captured by this call and kept."""
+    g = store.pop(key, None)
+    if g is not None and g.serves(cfg, sampling, eos_id, params, state):
+        store[key] = g
+        return g.replay(state, *inputs)
+    g = make()
+    out = g.capture(state, *inputs)
+    store[key] = g  # kept once captured
+    return out
 
 
 @torch.inference_mode()
@@ -398,14 +485,26 @@ def _decode_steps_graphed(cfg, sampling, eos_id, n_steps, params, state):
     n_steps, captured on the first call (`_SegmentGraph`)."""
     if not graph.supported(sampling):
         return _decode_steps_staged(cfg, sampling, eos_id, n_steps, params, state)
-    seg = state.graphs.pop(n_steps, None)
-    if seg is not None and seg.serves(cfg, sampling, eos_id, params, state):
-        state.graphs[n_steps] = seg
-        return seg.replay(state)
-    seg = _SegmentGraph(cfg, sampling, eos_id, n_steps, params, state)
-    state, outs = seg.capture(state)
-    state.graphs[n_steps] = seg  # kept once captured
-    return state, outs
+    return _replay_or_capture(
+        state.graphs, n_steps,
+        lambda: _SegmentGraph(cfg, sampling, eos_id, n_steps, params, state),
+        cfg, sampling, eos_id, params, state)
+
+
+def _prefill_slots_graphed(cfg, sampling, eos_id, params, state, tokens, true_lens, slots):
+    """An admission on a CUDA device: the replay of the state's graph for
+    the group's shape, captured on the shape's first call (`_AdmitGraph`),
+    in the memory pool of the state's other admission graphs."""
+    store = state.admit_graphs
+    G, Lp = tokens.shape
+
+    def make():
+        pool = next(iter(store.values())).pool if store else torch.cuda.graph_pool_handle()
+        return _AdmitGraph(cfg, sampling, eos_id, params, state, G, Lp, pool)
+
+    state, _ = _replay_or_capture(store, (G, Lp), make, cfg, sampling, eos_id, params, state,
+                                  tokens, true_lens, slots)
+    return state
 
 
 @torch.inference_mode()

@@ -383,7 +383,7 @@ class _StreamGraph(graph.SegmentGraph):
     outputs = ("token", "done", "lengths")
 
     def __init__(self, cfg, sampling, eos_id, n_steps, params, state: DecodeState):
-        super().__init__(cfg, sampling, eos_id, n_steps, params)
+        super().__init__(cfg, sampling, eos_id, n_steps, params, steps=n_steps)
         self.static = dataclasses.replace(
             state, cache=bb.KVCache(*(torch.empty_like(t) for t in _cache_tensors(state.cache))),
             **{n: torch.empty_like(getattr(state, n)) for n in _STREAM_INPUTS})

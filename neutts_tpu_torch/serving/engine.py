@@ -25,8 +25,9 @@ and `stats["expert_load_peak"]` gives the busiest expert's decode rows over
 the mean, in percent (100 = even), averaged over the MoE layers.
 
 Spans (`neutts_tpu_torch.utils`, recorded while the tracer is on):
-`engine.dispatch` holds `engine.admit` (its `engine.prefill_group`s) and
-`batching.decode_steps` (its `decode.step`s); `engine.collect` holds
+`engine.dispatch` holds `engine.admit` (its `engine.prefill_group`s, each an
+`admit.replay` on a card) and `batching.decode_steps` (a `decode.replay` on a
+card, else its `decode.step`s); `engine.collect` holds
 `readback.wait`; each request adds `engine.queue` (submit to admission) and
 `engine.request` (submit to the collect that delivers it), keyed by its id.
 """

@@ -783,6 +783,112 @@ def test_segment_graph_matches_eager_staged(dev, kv_dtype, greedy):
     assert torch.equal(outC, first)
 
 
+def _admission_groups(lay):
+    """Two admission shapes, each twice: (2, 128), and (3, 64) padded by a
+    duplicate slot (the engine's group padding)."""
+    def code(i, n):
+        return [lay.speech_base + (7 * i + j) % 60 for j in range(n)]
+
+    return [([code(0, 5), code(1, 90)], [0, 4], 128),
+            ([code(2, 7), code(3, 40), code(3, 40)], [1, 3, 3], 64),
+            ([code(4, 100), code(5, 3)], [4, 5], 128),
+            ([code(6, 11), code(7, 2), code(7, 2)], [0, 2, 2], 64)]
+
+
+def _check_admit_graphs(dev, cfg, scfg, params, kernels):
+    """`prefill_slots` (one graph per shape, captured on the shape's first
+    call, then replayed) against the eager `_prefill_slots_eager` on a twin
+    state, group by group: the five per-slot tensors (first tokens
+    included), the cache's values and scales and an LFM2 conv state
+    bit-equal; returned tensors alias none of the graph's buffers; each
+    call adds the eager admission's launches to `_build.launches`
+    (`kernels` among them); one `admit.capture` a shape, then
+    `admit.replay`s alone, all in one memory pool; a decode segment after
+    them keeps its own `decode.capture`."""
+    from neutts_tpu_torch.runtime import batching
+    from neutts_tpu_torch.utils import TRACER
+
+    eos = cfg.layout.speech_gen_end
+    sA, sB = (batching.SlotState.create(cfg, 6, dev, seed=5) for _ in range(2))
+    slot_names = batching._SLOT_INPUTS
+    with TRACER.on() as records:
+        for prompts, slots, Lp in _admission_groups(cfg.layout):
+            toks = torch.zeros((len(prompts), Lp), dtype=torch.int32)
+            for j, pr in enumerate(prompts):
+                toks[j, Lp - len(pr):] = torch.tensor(pr)
+            lens = torch.tensor([len(pr) for pr in prompts], dtype=torch.int32)
+            inputs = tuple(t.to(dev) for t in (toks, lens, torch.tensor(slots, dtype=torch.int32)))
+            counts = [dict(_build.launches)]
+            sA = batching.prefill_slots(cfg, scfg, eos, params, sA, *inputs)
+            counts.append(dict(_build.launches))
+            sB = batching._prefill_slots_eager(cfg, scfg, eos, params, sB, *inputs)
+            counts.append(dict(_build.launches))
+            ran = [{k: b[k] - a[k] for k in a} for a, b in zip(counts, counts[1:])]
+            assert ran[0] == ran[1] and all(ran[0][k] > 0 for k in kernels), (Lp, ran)
+            g = sA.admit_graphs[(len(prompts), Lp)]
+            held = {t.data_ptr() for t in (*g.result, *g.inputs,
+                                           *(getattr(g.static, n) for n in slot_names))}
+            assert not held & {getattr(sA, n).data_ptr() for n in slot_names}
+            torch.cuda.synchronize()
+            for n in slot_names:
+                assert torch.equal(getattr(sA, n), getattr(sB, n)), (Lp, n)
+            for f in ("k", "v", "k_scale", "v_scale", "k_prev", "v_prev"):
+                a, b = getattr(sA.cache, f), getattr(sB.cache, f)
+                assert (a is None and b is None) or torch.equal(a, b), (Lp, f)
+            if sA.conv is not None:
+                assert torch.equal(sA.conv, sB.conv) and sA.conv.any(), Lp
+        sA, _ = batching.decode_steps(cfg, scfg, eos, batching.segment_align(sA.cache), params, sA)
+    names = [r.name for r in records]
+    assert names.count("admit.capture") == 2 and names.count("admit.replay") == 2
+    assert names.count("decode.capture") == 1 and "decode.replay" not in names
+    assert [(r.attrs["rows"], r.attrs["bucket"]) for r in records
+            if r.name == "admit.capture"] == [(2, 128), (3, 64)]
+    pools = {g.pool for g in sA.admit_graphs.values()}
+    assert len(sA.admit_graphs) == 2 and len(pools) == 1 and None not in pools
+
+
+@pytest.mark.parametrize("kv_dtype,greedy", [("int8", True), ("int4", True), ("int8", False)])
+def test_admit_graph_matches_eager_admission(dev, kv_dtype, greedy):
+    """W8A8 on the card, int8 and int4 caches, greedy and top-k (a
+    registered generator draws the eager path's noise): `_check_admit_graphs`."""
+    from neutts_tpu_torch import config
+
+    cfg = config.TINY.scaled(kv_dtype=kv_dtype)
+    lay = cfg.layout
+    params = bb.add_speech_head(cfg, bb.quantize_params(bb.init_params(cfg, seed=3, device=dev)))
+    scfg = config.SamplingConfig(greedy=greedy, min_new_tokens=4).constrained_to(lay)
+    scatter = "scatter_prefill4" if kv_dtype == "int4" else "scatter_prefill"
+    _check_admit_graphs(dev, cfg, scfg, params, ("prefill_attention", scatter))
+
+
+def test_engine_admitting_through_graphs_matches_eager(dev, monkeypatch):
+    """A short W8A8 Engine run on the card, its admissions replaying their
+    graphs, gives the tokens of the same run admitting eagerly
+    (`_prefill_slots_eager` in `prefill_slots`'s place)."""
+    from neutts_tpu_torch import config
+    from neutts_tpu_torch.runtime import batching
+    from neutts_tpu_torch.serving import Engine
+
+    cfg = config.TINY.scaled(kv_dtype="int8")
+    lay = cfg.layout
+    params = bb.quantize_params(bb.init_params(cfg, seed=3, device=dev))
+    scfg = config.SamplingConfig(greedy=True, min_new_tokens=4).constrained_to(lay)
+    prompts = [[lay.speech_base + (5 * i + j) % 60 for j in range(3 + (37 * i) % 150)]
+               for i in range(12)]
+    results, kept = [], []
+    for eager in (False, True):
+        if eager:
+            monkeypatch.setattr(batching, "prefill_slots", batching._prefill_slots_eager)
+        eng = Engine(cfg, params, eos_id=lay.speech_gen_end, n_slots=4, sampling=scfg,
+                     segment_steps=16, device=dev)
+        rids = [eng.submit(p, max_new=20 + i) for i, p in enumerate(prompts)]
+        out = eng.run()
+        results.append([out[r] for r in rids])
+        kept.append(len(eng.state.admit_graphs))
+    assert results[0] == results[1] and all(len(t) == 20 + i for i, t in enumerate(results[0]))
+    assert kept[0] > 1 and kept[1] == 0
+
+
 @pytest.fixture()
 def no_tf32():
     """Full-f32 products and convolutions (cuDNN takes TF32 by default)."""
@@ -1231,6 +1337,19 @@ def test_lfm2_segment_graph_matches_eager_staged(dev):
         sA, _ = batching.decode_steps(cfg, scfg, eos, 8, params, sA)
         assert set(sA.graphs) == {8, S}
         assert [rec.name for rec in records].count("decode.capture") == 3
+
+
+def test_lfm2_admit_graph_matches_eager_admission(dev):
+    """An LFM2-MoE on the card: `_check_admit_graphs`, the conv state and
+    the expert kernel's launches among what the graph must reproduce."""
+    from neutts_tpu_torch import config
+    from neutts_tpu_torch.models import lfm2
+
+    cfg = _lfm2_card_cfg()
+    params = bb.add_speech_head(cfg, lfm2.init_params(cfg, seed=3, device=dev))
+    scfg = config.SamplingConfig(greedy=True, min_new_tokens=4).constrained_to(cfg.layout)
+    _check_admit_graphs(dev, cfg, scfg, params,
+                        ("prefill_attention", "scatter_prefill", "moe_experts"))
 
 
 @pytest.mark.skipif(torch.cuda.device_count() < 2, reason="needs a second card")

@@ -242,6 +242,31 @@ def test_segment_graph_body_keeps_the_conv_state(params):
     assert sA.cache.k.shape[0] == CFG.n_cache_layers == 2
 
 
+def test_admit_graph_body_keeps_the_conv_state(params):
+    """The body an admission's CUDA graph captures, run directly on its
+    static buffers, against the eager admission: a group with a duplicate
+    slot, then the same shape into other slots: the per-slot tensors, the KV
+    cache and the conv state equal; the graph writes the state's own conv
+    tensor."""
+    sA, sB = (batching.SlotState.create(CFG, 4, "cpu", seed=2) for _ in range(2))
+    g = batching._AdmitGraph(CFG, SCFG, EOS, params, sA, 3, 64)
+    assert g.static.conv is sA.conv and g.serves(CFG, SCFG, EOS, params, sA)
+    for prompts, slots in (([[4, 5, 6], [7, 8], [7, 8]], [0, 2, 2]),
+                           ([[9, 9, 1, 3], [2], [5, 5]], [1, 3, 0])):
+        toks = torch.zeros((3, 64), dtype=torch.int32)
+        for j, pr in enumerate(prompts):
+            toks[j, 64 - len(pr):] = torch.tensor(pr)
+        inputs = (toks, torch.tensor([len(p) for p in prompts], dtype=torch.int32),
+                  torch.tensor(slots, dtype=torch.int32))
+        sA, _ = g.run(sA, g.body, *inputs)
+        sB = batching._prefill_slots_eager(CFG, SCFG, EOS, params, sB, *inputs)
+        for n in batching._SLOT_INPUTS:
+            assert torch.equal(getattr(sA, n), getattr(sB, n)), n
+    assert torch.equal(sA.conv, sB.conv) and sA.conv.any()
+    for f in ("k", "v", "k_scale", "v_scale"):
+        assert torch.equal(getattr(sA.cache, f), getattr(sB.cache, f)), f
+
+
 def test_qwen2_paths_refuse_an_lfm2_config(params):
     toks, lens = dec.pad_prompts([[3, 4, 5]], pad_id=0, bucket=128, device="cpu")
     with pytest.raises(NotImplementedError, match="Qwen2"):

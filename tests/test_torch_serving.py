@@ -373,6 +373,67 @@ def test_segment_graph_serves_only_what_it_baked_in(params):
     assert state.graphs == {}
 
 
+def _group(prompts, slots, Lp):
+    """tokens [G, Lp] LEFT-padded, true lengths [G] and slots [G] of one
+    admission group."""
+    toks = torch.zeros((len(prompts), Lp), dtype=torch.int32)
+    for j, p in enumerate(prompts):
+        toks[j, Lp - len(p):] = torch.tensor(p, dtype=torch.int32)
+    return (toks, torch.tensor([len(p) for p in prompts], dtype=torch.int32),
+            torch.tensor(slots, dtype=torch.int32))
+
+
+# two shapes, each twice; the (3, 8) groups are padded (a duplicate slot)
+ADMISSIONS = [([[3, 1, 4, 1, 5], [9, 2, 6]], [0, 4], 16),
+              ([[2, 7, 1, 8], [6, 2], [6, 2]], [1, 3, 3], 8),
+              ([[5, 8, 9, 7], [1, 1]], [4, 5], 16),
+              ([[4, 4, 4], [7], [7]], [0, 2, 2], 8)]
+
+
+@pytest.mark.parametrize("kv_dtype", ["float32", "int8", "int4"])
+def test_admit_graph_body_matches_eager_admission(params, kv_dtype):
+    """The body an admission's CUDA graph captures, run here directly on its
+    static buffers with the same copy-in and clone-out, against the eager
+    admission over two shapes, the second a padded group with a duplicate
+    slot, each admitted twice: the five per-slot tensors and the cache
+    equal; the call's inputs and the state's old tensors unchanged; no
+    returned tensor aliases a buffer. The CPU's `prefill_slots` captures
+    nothing."""
+    cfg = CFG.scaled(kv_dtype=kv_dtype)
+    scfg = config.SamplingConfig(greedy=True, min_new_tokens=1)
+    sA, sB = (batching.SlotState.create(cfg, 6, "cpu", seed=3) for _ in range(2))
+    graphs = {}
+    for prompts, slots, Lp in ADMISSIONS:
+        inputs = _group(prompts, slots, Lp)
+        key = tuple(inputs[0].shape)
+        g = graphs.setdefault(key, batching._AdmitGraph(cfg, scfg, EOS, params, sA, *key))
+        assert g.serves(cfg, scfg, EOS, params, sA) and not g.serves(cfg, scfg, EOS, params, sB)
+        old = [getattr(sA, n) for n in batching._SLOT_INPUTS] + list(inputs)
+        before = [t.clone() for t in old]
+        held = []  # the body's outputs, which a graph keeps as its result
+
+        def body():
+            held.extend(g.body())
+            return held
+
+        sA, out = g.run(sA, body, *inputs)
+        sB = batching._prefill_slots_eager(cfg, scfg, EOS, params, sB, *inputs)
+        assert out is None
+        for n in batching._SLOT_INPUTS:
+            assert torch.equal(getattr(sA, n), getattr(sB, n)), (key, n)
+        for t, b in zip(old, before):
+            assert torch.equal(t, b), key
+        buffers = {t.data_ptr() for t in (*g.inputs, *held,
+                                          *(getattr(g.static, n) for n in batching._SLOT_INPUTS))}
+        assert not buffers & {getattr(sA, n).data_ptr() for n in batching._SLOT_INPUTS}
+    assert sA.active[[0, 1, 2, 3, 4, 5]].all()
+    for f in ("k", "v", "k_scale", "v_scale", "k_prev", "v_prev"):
+        a, b = getattr(sA.cache, f), getattr(sB.cache, f)
+        assert (a is None and b is None) or torch.equal(a, b), f
+    sC = batching.prefill_slots(cfg, scfg, EOS, params, sB, *_group([[3, 4]], [5], 8))
+    assert sC.admit_graphs == {}
+
+
 def test_predictive_retirement_caps_frees_at_queue_depth(params):
     """More budget-complete slots than queued requests: only queue-depth
     slots may be freed predictively; the rest retire normally and the empty
