@@ -134,6 +134,7 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM: 80 GB HBM3
 PEAK_BF16 = 989e12  # dense tensor-core bf16 flop/s
 PEAK_INT8 = 1979e12  # dense tensor-core int8 op/s
+SPIN_CYCLES = 200_000_000  # cycles of torch.cuda._sleep: ~0.1 s on an H100
 PHASE4_TEXTS = [
     "Hello there, this is a test of the port.",
     "The quick brown fox jumps over the lazy dog.",
@@ -726,6 +727,225 @@ def phase_lfm2(dev, device_ms=None) -> dict:
     return out
 
 
+def phase_moonlight(dev, device_ms=None) -> dict:
+    """[19] Moonlight-16B-A3B at its published widths: the MLA decode kernel
+    and prefill attention (#5) at the q/k head of 192, then the Engine
+    serving the model (see the module's docstring). `kernel_rows` holds the
+    kernels' rows of the `kernels` line; `device_ms` is phase 3's timer
+    (None: no device ms)."""
+    import numpy as np
+    import torch
+
+    from benchmark.harness import moonlight as bench_moonlight
+    from neutts_tpu_torch import config
+    from neutts_tpu_torch.models import backbone as bb
+    from neutts_tpu_torch.ops import _build
+    from neutts_tpu_torch.ops import attention as attn
+    from neutts_tpu_torch.runtime import batching
+    from neutts_tpu_torch.serving import Engine
+    from neutts_tpu_torch.utils import TRACER
+
+    out: dict = {"kernel_rows": {}}
+    t0 = time.perf_counter()
+    _build.library("mla_decode.cu")
+    out["build_s"] = time.perf_counter() - t0
+    for line in (_build.BUILD_DIR / "mla_decode.log").read_text().splitlines():
+        if "registers" in line or "spill" in line or "Compiling entry" in line:
+            print(f"[19] ptxas mla_decode.cu: {line.strip()}")
+    c = json.loads((ROOT / "benchmark/configs/moonlight-16b-a3b-bf16-int8latent.json")
+                   .read_text())
+    cfg, m = bench_moonlight.backbone_config(c), bench_moonlight.sizes(c)
+    g = torch.Generator(device=dev).manual_seed(19)
+
+    def randn(*shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=g, device=dev).to(dtype)
+
+    def timed(fn, n):
+        """ms a call: events around n back-to-back calls queued behind a spin
+        kernel, so that they time the device, not the host's launch rate."""
+        fn()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        torch.cuda.synchronize()
+        torch.cuda._sleep(SPIN_CYCLES)
+        ev[0].record()
+        for _ in range(n):
+            fn()
+        ev[1].record()
+        torch.cuda.synchronize()
+        return ev[0].elapsed_time(ev[1]) / n
+
+    def row(key, label, got, want, tol, fn, plain, n, nbytes, flops, source, extra=""):
+        """Check got against want within the per-element tol, time fn, plain
+        and (with device_ms) fn's device time, and keep the kernel's row."""
+        err = (got.float() - want.float()).abs()
+        ok = bool(torch.isfinite(got.float()).all()) and bool((err <= tol).all())
+        ms, plain_ms = timed(fn, n), timed(plain, 3)
+        dms = (None, None) if device_ms is None else device_ms(lambda i: fn(), n)
+        b_ms, by = bound(nbytes, flops, PEAK_BF16)
+        dev_txt = ("" if dms[0] is None else
+                   f" | device {dms[0]:.4f} warm L2, {dms[1]:.4f} L2 flushed")
+        wf = want.float().abs()
+        print(f"[19] {key} {label}: max_abs_err {float(err.max()):.3e} (tol 1% of sum p|v| per "
+              f"output, median {float(tol[wf > 0].median()):.3e}, at most "
+              f"{float(tol.max()):.3e}; median |out| {float(wf[wf > 0].median()):.3e}; largest "
+              f"err / tol {float((err / tol.clamp(min=1e-30)).max()):.3f}{extra}) | ms {ms:.4f}"
+              f"{dev_txt} | bound {b_ms:.4f} "
+              f"({by}, {100 * b_ms / ms:.1f}% of it) | plain ms {plain_ms:.3f}")
+        require(ok, f"{key} {label} disagrees with its plain version")
+        out[label] = {"max_abs_err": float(err.max()), "tol": float(tol.max()), "ms": ms,
+                      "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": by}
+        # no pallas_call site stands behind MLA (the JAX package has no latent attention)
+        out["kernel_rows"][key] = {
+            "name": key, "route": "cuda", "source": source,
+            "replaces": None if key == "mla_decode" else "neutts_tpu/ops/attention.py:1525",
+            "launches": 0, "max_abs_err": float(err.max()), "tol": float(tol.max()), "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": by, "library_ms": None,
+            "device_warm_ms": dms[0], "device_ms": dms[1]}
+
+    # the MLA kernel at the cell's shape: 256 slots of 4,352 rows, live rows
+    # spread as a steady state's (prompt plus decoded, ~1,760 a slot), staging
+    # column 17 of a 32-step segment, 2 layers (the kernel reads one)
+    B, T, S, L, step = 256, batching.slot_cache_len(cfg), 32, 2, 17
+    R, H, V = attn.MLA_ROW, attn.MLA_HEADS, attn.MLA_VALUE
+    rs = np.random.default_rng(19)
+    live = rs.integers(400, 3101, B)
+    pad = rs.integers(0, 133, B)
+    base = torch.as_tensor(pad + live, dtype=torch.int32, device=dev)
+    pad = torch.as_tensor(pad, dtype=torch.int32, device=dev)
+    lat, lat_s = bb.quantize_kv(randn(L, B, T, R))
+    stag, ss = bb.quantize_kv(randn(L, B, S, R))
+    stag_s = torch.zeros((L, B, attn.SEG_PAD), device=dev)
+    stag_s[..., :S] = ss
+    q = randn(B, H, R)
+    args = (q, lat, lat_s, stag, stag_s, 1, step, base, pad, cfg.softmax_scale, V)
+    _build.reset_launches()
+    got = attn.mla_decode_staged(*args)
+    require(_build.launches["mla_decode"] == 1, "mla_decode_staged is not one kernel launch")
+    want = attn.mla_decode_staged_plain(*args)
+    torch.cuda.synchronize()
+    require(torch.equal(got, attn.mla_decode_staged(*args)), "mla_decode is not bit-equal "
+            "from run to run")
+    # each output within 1% of the sum of its terms' sizes, sum_t p_t |value_t|:
+    # the kernel rounds each p_t x scale to bf16 (2^-9 of a term) and the output
+    # to bf16 (2^-9 of |output| <= the sum); an output that its terms cancel
+    # toward 0 keeps their rounding. A dropped, misplaced or misweighted row or
+    # split moves outputs by a term's share, past the limit
+    rows_f = torch.cat([lat[1].float() * lat_s[1][..., None],
+                        stag[1].float() * stag_s[1][:, :S, None]], dim=1)
+    t_ = torch.arange(T + S, device=dev)
+    live_t = (((t_ < base[:, None]) & (t_ >= pad[:, None]))
+              | ((t_ >= T) & (t_ <= T + step)))[:, None]
+    p_ = torch.softmax(torch.einsum("bhr,btr->bht", q.float(), rows_f * cfg.softmax_scale)
+                       .masked_fill(~live_t, float("-inf")), dim=-1)
+    tol = 1e-2 * torch.einsum("bht,btv->bhv", p_, rows_f[..., :V].abs())
+    del rows_f, p_
+    attended = float((base - pad).sum()) + B * (step + 1)
+    row("mla_decode", f"B {B} T {T} step {step}", got, want, tol,
+        lambda: attn.mla_decode_staged(*args), lambda: attn.mla_decode_staged_plain(*args), 50,
+        bench_moonlight.mla_decode_bytes(m, attended, B),
+        bench_moonlight.mla_decode_flops(m, attended) / m["num_hidden_layers"],
+        "csrc/mla_decode.cu", f"; {int(live.mean())} live rows a slot")
+    out["mla_shape"] = {"B": B, "T": T, "step": step, "live_rows_mean": float(live.mean())}
+    del lat, lat_s, stag, stag_s, got, want
+
+    # prefill attention (#5) at the q/k head of 192, V zero-padded from 128,
+    # at an admission shape: 64 prompts of 380-512 tokens in the 512 bucket
+    Bp, Sp, dq, dv = 64, 512, cfg.qk_head_dim, cfg.v_head_dim
+    pads = torch.as_tensor(Sp - rs.integers(380, 513, Bp), dtype=torch.int32, device=dev)
+    pq, pk = randn(Bp, Sp, H, dq), randn(Bp, Sp, H, dq)
+    pv = torch.nn.functional.pad(randn(Bp, Sp, H, dv), (0, dq - dv))
+    got = attn.prefill_attention(pq, pk, pv, pads)
+    want = attn.prefill_attention_plain(pq, pk, pv, pads)
+    torch.cuda.synchronize()
+    require(not got[..., dv:].any(), "prefill_attention D 192: the padded value columns are "
+            "not 0")
+    # as the MLA kernel's: 1% of sum_t p_t |v_t| (pad positions, all 0, exactly)
+    tol = 1e-2 * attn.prefill_attention_plain(pq, pk, pv.abs(), pads).float()
+    mp = (Sp - pads).double()
+    pairs = float((mp * (mp + 1) / 2).sum())
+    rows = float(mp.sum())
+    row("prefill_attention@B64_S512_D192", f"{Bp} x {Sp} x {H} heads, q/k {dq}, v {dv} padded",
+        got, want, tol, lambda: attn.prefill_attention(pq, pk, pv, pads),
+        lambda: attn.prefill_attention_plain(pq, pk, pv, pads), 20,
+        rows * 3 * H * dq * 2 + Bp * Sp * H * dq * 2 + 4 * Bp, 4.0 * H * dq * pairs,
+        "csrc/prefill_attention.cu")
+    del pq, pk, pv, got, want
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    # the benchmark's configuration and seeded weights, so that its limit holds
+    lay = cfg.layout
+    params = bench_moonlight.params(m, 19, dev)
+    scfg = config.SamplingConfig(greedy=True, min_new_tokens=129,
+                                 max_context=cfg.max_context).constrained_to(lay)
+    n_slots, n_req = 64, 96
+    prompts = [(lay.speech_base + rs.integers(0, lay.codebook_size, int(n))).tolist()
+               for n in rs.integers(380, 513, n_req)]
+    budgets = [int(b) for b in rs.integers(64, 129, n_req)]
+    eng = Engine(cfg, params, eos_id=lay.speech_gen_end, n_slots=n_slots, sampling=scfg,
+                 segment_steps=32, device=dev)
+    eng.submit(prompts[0], max_new=40)
+    eng.run()
+    eng.reset_stats()
+    rids = [eng.submit(p, max_new=b) for p, b in zip(prompts, budgets)]
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    with TRACER.on() as records:
+        res = eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    names = [r.name for r in records]
+    launches = dict(_build.launches)
+    segments = names.count("batching.decode_steps")
+    ok = all(len(res[r]) == b and all(lay.speech_base <= t < lay.vocab_size for t in res[r])
+             for r, b in zip(rids, budgets))
+    out["serving"] = {"slots": n_slots, "requests": n_req, "tokens": sum(budgets),
+                      "wall_s": wall, "tok_s": sum(budgets) / wall, "launches": launches,
+                      "replays": names.count("decode.replay"), "segments": segments,
+                      "admit_replays": names.count("admit.replay"),
+                      "admissions": names.count("engine.prefill_group"),
+                      "expert_load_peak": eng.stats.get("expert_load_peak"),
+                      "memory_peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+                      "memory_reserved_peak_gb": torch.cuda.max_memory_reserved(dev) / 1e9}
+    sv = out["serving"]
+    per_segment = cfg.n_layers * eng.segment_steps
+    print(f"[19] Engine Moonlight-16B-A3B bf16, int8 latent, {n_slots} slots: {n_req} requests, "
+          f"{sv['tokens']} tokens in {wall:.1f} s, {sv['tok_s']:.1f} tok/s | all served in the "
+          f"speech codes: {ok} | {sv['replays']} of {segments} segments and "
+          f"{sv['admit_replays']} of {sv['admissions']} admissions replayed | mla_decode "
+          f"launches {launches['mla_decode']} ({per_segment} a segment) | moe_experts "
+          f"{launches['moe_experts']} | prefill_attention {launches['prefill_attention']} | "
+          f"expert load peak {sv['expert_load_peak']:.1f}% | memory peak "
+          f"{sv['memory_peak_gb']:.2f} GB allocated, {sv['memory_reserved_peak_gb']:.2f} reserved")
+    require(ok, "Moonlight serving: a request missed its budget or left the speech codes")
+    require(sv["replays"] == segments > 0, "Moonlight serving: a segment did not replay")
+    require(launches["mla_decode"] == per_segment * segments, "Moonlight serving: the MLA "
+            "kernel did not run once a layer and step")
+    require(launches["moe_experts"] > 0 and launches["prefill_attention"] > 0
+            and launches["scatter_prefill"] > 0 and launches["reconcile_segment"] > 0,
+            "Moonlight serving: a kernel never ran")
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    from benchmark.reference.moonlight import token_gaps
+
+    gaps = token_gaps(m, params, [(prompts[i], res[rids[i]]) for i in range(4)],
+                      {"weights_mode": "bf16", "act": None, "kv": "int8"}, lay.speech_base,
+                      lay.vocab_size)
+    out["token_gap"] = gaps
+    limit = c["limits"]["token_gap"]
+    print(f"[19] token gap of 4 served requests against benchmark/reference/moonlight.py: "
+          f"{gaps['token_gap']:.4f} over {gaps['tokens']} tokens (limit {limit})")
+    require(gaps["token_gap"] <= limit, f"Moonlight serving: token gap {gaps['token_gap']} "
+            f"over the configuration's limit {limit}")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -757,14 +977,17 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     report["gpu"] = smi
 
-    if sys.argv[1:2] == ["--lfm2"]:
-        lf = report["phases"]["lfm2"] = phase_lfm2(dev)
-        rows = lf.pop("kernel_rows")
-        for r in rows.values():
-            r["launches"] = lf["serving"]["launches"]["moe_experts"]
+    if sys.argv[1:2] in (["--lfm2"], ["--moonlight"]):
+        model = sys.argv[1][2:]
+        phase = phase_lfm2 if model == "lfm2" else phase_moonlight
+        ph = report["phases"][model] = phase(dev)
+        rows = ph.pop("kernel_rows")
+        for key, r in rows.items():
+            r["launches"] = ph["serving"]["launches"][key.split("@")[0]]
         report["kernels"] = list(rows.values())
         (out_dir := ROOT / "chiprun_out").mkdir(exist_ok=True)
-        (out_dir / "chip_smoke_lfm2.json").write_text(json.dumps(report, indent=1, default=float))
+        (out_dir / f"chip_smoke_{model}.json").write_text(json.dumps(report, indent=1,
+                                                                     default=float))
         print(json.dumps({"kernels": report["kernels"]}))
         print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                                  "count": torch.cuda.device_count()}}))
@@ -797,7 +1020,6 @@ def main() -> int:
         torch.cuda.synchronize()
         return s.elapsed_time(e) / iters
 
-    SPIN = 200_000_000  # cycles of torch.cuda._sleep: ~0.1 s on an H100
     # written between cold calls: five times the H100's 50 MB L2, so a call
     # finds none of its inputs there and reads them from HBM, as its bound
     # assumes
@@ -819,7 +1041,7 @@ def main() -> int:
         ev = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
               for _ in range(iters + 1)]
         torch.cuda.synchronize()
-        torch.cuda._sleep(SPIN)
+        torch.cuda._sleep(SPIN_CYCLES)
         t0 = time.perf_counter()
         ev[-1][0].record()
         for i in range(iters):
@@ -839,7 +1061,7 @@ def main() -> int:
 
     s0, s1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     s0.record()
-    torch.cuda._sleep(SPIN)
+    torch.cuda._sleep(SPIN_CYCLES)
     s1.record()
     torch.cuda.synchronize()
     spin_ms = s0.elapsed_time(s1)
@@ -1984,6 +2206,10 @@ def main() -> int:
     lf = report["phases"]["lfm2"] = phase_lfm2(dev, device_ms)
     results.update(lf.pop("kernel_rows"))
 
+    # --- 19. Moonlight-16B-A3B: the MLA kernel, #5 at D 192 and the Engine ------------
+    mo = report["phases"]["moonlight"] = phase_moonlight(dev, device_ms)
+    results.update(mo.pop("kernel_rows"))
+
     # --- 16. load published formats at Air width --------------------------------------
     conv, conv_paths = phase_converters(dev, run_path, texts, refs, ref_text)
     report["converters"] = conv
@@ -2027,7 +2253,8 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # --- report ------------------------------------------------------------------------
-    paths = (w8, d16, s8, s16, w4, s4, stream, mc, lf["serving"], *conv_paths, tp17)
+    paths = (w8, d16, s8, s16, w4, s4, stream, mc, lf["serving"], mo["serving"], *conv_paths,
+             tp17)
     for key, r in results.items():
         # a shape row (name@shape) counts its kernel's launches at every shape
         r["launches"] = sum(ph["launches"][key.split("@")[0]] for ph in paths)

@@ -205,13 +205,58 @@ class Lfm2Config(BackboneConfig):
         return self.n_layers - self.n_dense_layers
 
 
+@dataclasses.dataclass(frozen=True)
+class MoonlightConfig(BackboneConfig):
+    """DeepSeek-V3-block backbone (moonshotai Moonlight-16B-A3B, HF
+    `deepseek_v3`): multi-head latent attention (MLA) without a query
+    low-rank, whose cache is one latent row a token (`kv_lora_rank` values
+    after their RMSNorm, then the shared rotary key of `qk_rope_head_dim`);
+    a dense SwiGLU FFN (`intermediate_size`) in the first `n_dense_layers`
+    layers and after them `n_experts` routed experts (sigmoid scores, top-k
+    on score + correction bias, weights normalised then scaled by
+    `routed_scaling_factor`) beside `n_shared_experts` shared ones, run as
+    one SwiGLU of n_shared_experts x moe_intermediate_size. A port-only
+    architecture, served by `serving.Engine` (`models/moonlight.py`).
+    `n_kv_heads` and `head_dim` (and so `q_dim` and `kv_dim`) are unused:
+    the latent replaces them."""
+
+    kv_lora_rank: int = 512
+    qk_nope_head_dim: int = 128
+    qk_rope_head_dim: int = 64
+    v_head_dim: int = 128
+    n_experts: int = 64
+    n_experts_per_tok: int = 6
+    n_shared_experts: int = 2
+    moe_intermediate_size: int = 1408
+    n_dense_layers: int = 1
+    routed_scaling_factor: float = 2.446
+
+    @property
+    def latent_dim(self) -> int:
+        """Values of one cached latent row: the normed latent, then the
+        rotary key."""
+        return self.kv_lora_rank + self.qk_rope_head_dim
+
+    @property
+    def qk_head_dim(self) -> int:
+        return self.qk_nope_head_dim + self.qk_rope_head_dim
+
+    @property
+    def softmax_scale(self) -> float:
+        return self.qk_head_dim ** -0.5
+
+    @property
+    def n_moe_layers(self) -> int:
+        return self.n_layers - self.n_dense_layers
+
+
 def require_qwen2(cfg: BackboneConfig, what: str) -> None:
-    """Refuse an LFM2 config on a path that runs the Qwen2 block alone (the
-    single-stream decode, tensor parallelism, training)."""
-    if isinstance(cfg, Lfm2Config):
+    """Refuse an LFM2 or Moonlight config on a path that runs the Qwen2
+    block alone (the single-stream decode, tensor parallelism, training)."""
+    if isinstance(cfg, (Lfm2Config, MoonlightConfig)):
         raise NotImplementedError(
-            f"{what} runs the Qwen2 block; {cfg.name} (conv and expert layers) is served by "
-            f"serving.Engine and serving.MultiChipEngine alone")
+            f"{what} runs the Qwen2 block; {cfg.name} (conv, latent attention or expert "
+            f"layers) is served by serving.Engine (LFM2 also by serving.MultiChipEngine) alone")
 
 
 # kv_dtype="auto" crossover (total context tokens): int8 below, int4 at or
@@ -330,6 +375,59 @@ LFM2_TINY = Lfm2Config(
     n_experts=8,
     n_experts_per_tok=2,
     moe_intermediate_size=32,
+)
+
+
+# Moonlight-16B-A3B (huggingface.co/moonshotai/Moonlight-16B-A3B config.json):
+# 27 layers, MLA with 16 heads (latent 512, rotary 64, nope 128, value 128),
+# a dense layer of 11,264, then 64 routed experts of 1,408 (top 6) and 2
+# shared. Its 163,840 text ids are extended by the 6 control tokens and
+# 65,536 speech codes (229,382). Served with an int8 latent cache.
+MOONLIGHT_LAYOUT = TokenLayout(n_text_tokens=163_840)
+MOONLIGHT_16B_A3B = MoonlightConfig(
+    name="moonlight-16b-a3b",
+    vocab_size=MOONLIGHT_LAYOUT.vocab_size,
+    n_text_tokens=MOONLIGHT_LAYOUT.n_text_tokens,
+    hidden_size=2048,
+    n_layers=27,
+    n_heads=16,
+    n_kv_heads=16,
+    head_dim=128,
+    intermediate_size=11264,
+    rope_theta=50_000.0,
+    rms_norm_eps=1e-5,
+    tie_embeddings=False,
+    max_context=4096,
+    kv_dtype="int8",
+)
+
+# Tiny Moonlight for unit tests: 1 dense and 2 MoE layers, 8 experts (top
+# 2), 1 shared, 4 heads over a latent of 64 + a rotary key of 16.
+MOONLIGHT_TINY = MoonlightConfig(
+    name="moonlight-tiny",
+    vocab_size=TEST_LAYOUT.vocab_size,
+    n_text_tokens=TEST_LAYOUT.n_text_tokens,
+    hidden_size=64,
+    n_layers=3,
+    n_heads=4,
+    n_kv_heads=4,
+    head_dim=32,
+    intermediate_size=128,
+    rope_theta=50_000.0,
+    rms_norm_eps=1e-5,
+    tie_embeddings=False,
+    max_context=512,
+    dtype="float32",
+    kv_dtype="int8",
+    kv_lora_rank=64,
+    qk_nope_head_dim=32,
+    qk_rope_head_dim=16,
+    v_head_dim=32,
+    n_experts=8,
+    n_experts_per_tok=2,
+    n_shared_experts=1,
+    moe_intermediate_size=32,
+    routed_scaling_factor=2.446,
 )
 
 

@@ -477,7 +477,9 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, const void*
 }  // namespace
 
 // dtype: DT_F32 (CUDA cores) or DT_BF16 (tensor cores, D in {16, 32, 64,
-// 128}, k/v 16-byte aligned); q, k, v and out share it.
+// 128, 192}, k/v 16-byte aligned); q, k, v and out share it. D 192 is
+// multi-head latent attention's query/key head (128 + 64 rotary) in a
+// prefill, whose 128-wide values the caller zero-pads to 192.
 extern "C" int neutts_prefill_attention(const void* q, const void* k, const void* v,
                                         const void* pads, void* out, int B, int S, int K,
                                         int G, int D, int dtype, void* stream) {
@@ -489,6 +491,7 @@ extern "C" int neutts_prefill_attention(const void* q, const void* k, const void
       case 32: return launch_bf16<32>(q, k, v, pads, out, B, S, K, G, st);
       case 64: return launch_bf16<64>(q, k, v, pads, out, B, S, K, G, st);
       case 128: return launch_bf16<128>(q, k, v, pads, out, B, S, K, G, st);
+      case 192: return launch_bf16<192>(q, k, v, pads, out, B, S, K, G, st);
       default: break;
     }
   }

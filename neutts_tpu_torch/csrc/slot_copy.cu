@@ -21,6 +21,10 @@
 // Rows not named are left untouched, byte for byte. A column outside
 // [0, T) is skipped, as the JAX one-hot fold drops it.
 //
+// One-buffer mode (a latent cache, int8 only): the V value and scale
+// pointers, source and destination, are null; the kernels then move the K
+// buffer alone, the same uniform branch in every thread.
+//
 // int4 modes: the cache holds nibble pairs [L, B, T/2, KD] (byte = lo +
 // 16*hi, token 2i lo, 2i+1 hi) with token t's scale at the deinterleaved
 // column t/2 + (t&1)*T/2 of [L, B, T].
@@ -66,7 +70,7 @@ __device__ __forceinline__ void copy_rows(
     if (c < 0 || c >= R) continue;
     const size_t o = (size_t)c * vpt + (i % vpt);
     dk[o] = sk[i];
-    dv[o] = sv[i];
+    if (dv != nullptr) dv[o] = sv[i];
   }
 }
 
@@ -83,7 +87,7 @@ __device__ __forceinline__ void copy_scales(
     const int c = INT4 ? (t >> 1) + (t & 1) * (T >> 1) : t;
     if (c < 0 || c >= T) continue;
     dst_ks[c] = src_ks[i];
-    dst_vs[c] = src_vs[i];
+    if (dst_vs != nullptr) dst_vs[c] = src_vs[i];
   }
 }
 
@@ -153,6 +157,7 @@ __global__ void __launch_bounds__(RC_THREADS) reconcile_kernel(
   if (INT4 && (b0 & 1)) __trap();
   const int l0 = blockIdx.y * lpb, nl = min(lpb, L - l0);
   const int tid = threadIdx.x;
+  const bool two = all_v != nullptr;  // K and V, or a latent cache's one buffer
 
   if (tid >= RC_VALUE_THREADS) {  // warp 8: the scales of tokens [0, S) of nl layers
     const int lane = tid - RC_VALUE_THREADS, n = nl * S;
@@ -164,7 +169,7 @@ __global__ void __launch_bounds__(RC_THREADS) reconcile_kernel(
         if (i < n) {
           const size_t src = ((size_t)(l0 + i / S) * B + b) * seg_pad + i % S;
           ks[u] = stag_ks[src];
-          vs[u] = stag_vs[src];
+          vs[u] = two ? stag_vs[src] : 0.f;
         }
       }
 #pragma unroll
@@ -175,7 +180,7 @@ __global__ void __launch_bounds__(RC_THREADS) reconcile_kernel(
         if (i < n && c >= 0 && c < T) {
           const size_t dst = ((size_t)(l0 + i / S) * B + b) * T + c;
           k_scale[dst] = ks[u];
-          v_scale[dst] = vs[u];
+          if (two) v_scale[dst] = vs[u];
         }
       }
     }
@@ -205,7 +210,7 @@ __global__ void __launch_bounds__(RC_THREADS) reconcile_kernel(
 #pragma unroll
         for (int p = 0; p < P; ++p) {
           k[u][p] = sk[src + p * vpr];
-          v[u][p] = sv[src + p * vpr];
+          v[u][p] = two ? sv[src + p * vpr] : k[u][p];
         }
       }
     }
@@ -217,10 +222,10 @@ __global__ void __launch_bounds__(RC_THREADS) reconcile_kernel(
         const size_t dst = (((size_t)l * B + b) * R + c) * vpr + e % vpr;
         if constexpr (INT4) {
           dk[dst] = pack4(k[u][0], k[u][1]);
-          dv[dst] = pack4(v[u][0], v[u][1]);
+          if (two) dv[dst] = pack4(v[u][0], v[u][1]);
         } else {
           dk[dst] = k[u][0];
-          dv[dst] = v[u][0];
+          if (two) dv[dst] = v[u][0];
         }
       }
     }
@@ -244,10 +249,11 @@ __global__ void __launch_bounds__(THREADS) scatter_prefill_kernel(
   if (!primary[j] || slot < 0 || slot >= B) return;
   const size_t src = (size_t)l * G + j;
   const size_t dst = (size_t)l * B + slot;
-  copy_rows(new_k + src * Lp * KD, new_v + src * Lp * KD, all_k + dst * T * KD,
-            all_v + dst * T * KD, Lp, 0, T, KD);
-  copy_scales<false>(new_ks + src * Lp, new_vs + src * Lp, k_scale + dst * T, v_scale + dst * T,
-                     Lp, 0, T);
+  const bool two = all_v != nullptr;
+  copy_rows(new_k + src * Lp * KD, two ? new_v + src * Lp * KD : nullptr, all_k + dst * T * KD,
+            two ? all_v + dst * T * KD : nullptr, Lp, 0, T, KD);
+  copy_scales<false>(new_ks + src * Lp, two ? new_vs + src * Lp : nullptr, k_scale + dst * T,
+                     two ? v_scale + dst * T : nullptr, Lp, 0, T);
 }
 
 // T and Lp count tokens: byte rows are T/2 per cache row, Lp/2 per prompt.

@@ -31,7 +31,7 @@ import torch
 import torch.nn.functional as F
 import torch.utils.checkpoint
 
-from neutts_tpu_torch.config import BackboneConfig, require_qwen2, round_up
+from neutts_tpu_torch.config import BackboneConfig, MoonlightConfig, require_qwen2, round_up
 from neutts_tpu_torch.models.checkpoint import param_count, tree_to  # noqa: F401 (API)
 from neutts_tpu_torch.ops import attention as attn_ops
 from neutts_tpu_torch.ops import mlp as mlp_ops
@@ -206,6 +206,17 @@ def matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return y.reshape(*x.shape[:-1], -1)
 
 
+def bmm_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Batched x [N, M, K] @ w [N, K, P] with an f32 result, by
+    `matmul_f32`'s rule: one library call writes f32 from 16-bit operands on
+    CUDA (`aten::bmm.dtype`); the CPU upcasts the operands."""
+    if x.dtype == torch.float32 and w.dtype == torch.float32:
+        return torch.bmm(x, w)
+    if x.device.type != "cuda":
+        return torch.bmm(x.float(), w.float())
+    return torch.bmm(x, w, out_dtype=torch.float32)
+
+
 def _mm(x: torch.Tensor, w) -> torch.Tensor:
     """Projection dispatch, returns f32.
 
@@ -315,10 +326,15 @@ class KVCache:
     2*t2 + 1 as hi), per-token f32 scales DEINTERLEAVED in [L, B, T] (even
     tokens' scales in [0, T/2), odd tokens' in [T/2, T)), and k_prev/v_prev
     [L, B, K*D] int8: the int4 values of each row's last even-parity write,
-    which an odd-parity write pairs with. The mode is flagged by k_prev."""
+    which an odd-parity write pairs with. The mode is flagged by k_prev.
+
+    Latent mode (a `MoonlightConfig`): one buffer, k [L, B, T, latent_dim]
+    int8 with per-token f32 scales k_scale [L, B, T] over the whole row, and
+    no V buffer (v and v_scale None): a token's latent row serves as key
+    and, in its first kv_lora_rank values, as value for every head."""
 
     k: torch.Tensor
-    v: torch.Tensor
+    v: Optional[torch.Tensor]
     k_scale: Optional[torch.Tensor] = None
     v_scale: Optional[torch.Tensor] = None
     k_prev: Optional[torch.Tensor] = None
@@ -335,6 +351,13 @@ class KVCache:
 
         def zeros(shape, dt):
             return torch.zeros(shape, dtype=dt, device=device)
+
+        if isinstance(cfg, MoonlightConfig):
+            if cfg.kv_dtype != "int8":
+                raise ValueError(f"{cfg.name}: the latent cache is int8, got kv_dtype "
+                                 f"{cfg.kv_dtype!r}")
+            return KVCache(k=zeros((L, batch, T, cfg.latent_dim), torch.int8), v=None,
+                           k_scale=zeros((L, batch, T), torch.float32))
 
         if cfg.kv_dtype == "int8":
             return KVCache(k=zeros(shape, torch.int8), v=zeros(shape, torch.int8),
@@ -361,6 +384,10 @@ class KVCache:
     @property
     def int4(self) -> bool:
         return self.k_prev is not None
+
+    @property
+    def latent(self) -> bool:
+        return self.v is None
 
     @property
     def max_len(self) -> int:
@@ -433,7 +460,8 @@ def write_kv(cache: KVCache, l: int, at: tuple, kf: torch.Tensor, vf: torch.Tens
     """Write K/V values kf/vf [..., KD] at layer l, positions `at` (an index
     into the [B, T] axes: a slot, a slot range, or per-row (rows, cols)), in
     place; quantized per token by `quantize` in int8 mode (`quantize_kv4`
-    for the int4 staging buffers, which hold unpacked int4 values).
+    for the int4 staging buffers, which hold unpacked int4 values). A
+    latent cache takes its rows as kf, and vf is None.
 
     int4 cache (`write_kv4_rows` takes per-row slots): `at` is (rows, a
     slice from 0 of even length) for a prompt block, whose packed pairs and
@@ -465,7 +493,8 @@ def write_kv(cache: KVCache, l: int, at: tuple, kf: torch.Tensor, vf: torch.Tens
             prev[l, rows] = q
     elif cache.quantized:
         cache.k[(l, *at)], cache.k_scale[(l, *at)] = quantize(kf)
-        cache.v[(l, *at)], cache.v_scale[(l, *at)] = quantize(vf)
+        if not cache.latent:
+            cache.v[(l, *at)], cache.v_scale[(l, *at)] = quantize(vf)
     else:
         cache.k[(l, *at)] = kf.to(cache.k.dtype)
         cache.v[(l, *at)] = vf.to(cache.v.dtype)

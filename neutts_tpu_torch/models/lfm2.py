@@ -52,10 +52,6 @@ from neutts_tpu_torch.utils import span
 Params = Dict[str, object]
 
 
-def is_lfm2(cfg) -> bool:
-    return isinstance(cfg, Lfm2Config)
-
-
 def plan(cfg: Lfm2Config) -> Tuple[Tuple[str, int, str, int], ...]:
     """Per layer: (op kind "conv" | "attn", its index among that kind's
     stacked weights (the attention index is its KV cache layer), ffn kind
@@ -105,6 +101,11 @@ def init_params(cfg: Lfm2Config, seed: int = 0, device="cuda", dtype=None) -> Pa
                 "w_down": dense((Lm, E, Fe, D))},
         "final_norm": ones((D,)),
     }
+
+
+def prepare_params(cfg: Lfm2Config, params: Params) -> Params:
+    """The weights as the serving engine runs them: as made."""
+    return params
 
 
 def layer_params(cfg: Lfm2Config, params: Params) -> List[Params]:
@@ -180,17 +181,19 @@ def _qkv(cfg: Lfm2Config, lp: Params, h, cos, sin):
     return q, k, v
 
 
-def moe(cfg: Lfm2Config, lp: Params, h: torch.Tensor,
-        expert_rows: Optional[torch.Tensor] = None) -> torch.Tensor:
+def moe(cfg, lp: Params, h: torch.Tensor, expert_rows: Optional[torch.Tensor] = None,
+        scale: float = 1.0) -> torch.Tensor:
     """Routed experts over h [B, S, D] normed -> f32 [B, S, D]: each token's
-    top-k experts' outputs weighted by the router. `expert_rows` [2, E], when
-    given, gains the rows routed to each expert and a 1 for each expert
-    that took any (on the device)."""
+    top-k experts' outputs weighted by the router, times `scale` (the routed
+    scaling factor; Moonlight's layers take it too). `expert_rows` [2, E],
+    when given, gains the rows routed to each expert and a 1 for each
+    expert that took any (on the device)."""
     B, S, D = h.shape
     k, E = cfg.n_experts_per_tok, cfg.n_experts
     flat = h.reshape(-1, D)
     with span("moe.route", rows=B * S):
-        idx, w = moe_ops.route(bb.matmul_f32(flat, lp["moe_router"]), lp["moe_expert_bias"], k)
+        idx, w = moe_ops.route(bb.matmul_f32(flat, lp["moe_router"]), lp["moe_expert_bias"], k,
+                               scale)
         perm, offsets, counts = moe_ops.sort_pairs(idx, E)
         if expert_rows is not None:
             expert_rows[0].add_(counts)
@@ -255,15 +258,16 @@ def prefill_hidden(cfg: Lfm2Config, params: Params, tokens: torch.Tensor,
 
 
 def decode_hidden(cfg: Lfm2Config, params: Params, layers: List[Params], token: torch.Tensor,
-                  positions: torch.Tensor, attend, conv: torch.Tensor,
-                  expert_rows: Optional[torch.Tensor] = None) -> torch.Tensor:
+                  positions: torch.Tensor, attend, state) -> torch.Tensor:
     """Every layer of one decode step: token [B] at RoPE positions [B].
     `layers` holds `layer_params`. attend(i, q [B,K,G,Dh], k [B,KD], v [B,KD])
     stores attention layer i's K/V where the caller keeps the cache and
-    returns the attention [B,K,G,Dh]; conv [Lc, B, K-1, D] is the conv state,
-    updated in place; expert_rows [Lm, 2, E] gains each MoE layer's routed
-    rows and touched experts. Returns the final-normed hidden state [B, D]."""
+    returns the attention [B,K,G,Dh]; state.conv [Lc, B, K-1, D] is the
+    conv state, updated in place; state.expert_rows [Lm, 2, E], when not
+    None, gains each MoE layer's routed rows and touched experts. Returns
+    the final-normed hidden state [B, D]."""
     B = token.shape[0]
+    conv, expert_rows = state.conv, state.expert_rows
     cos, sin = bb.rope_tables(cfg.head_dim, cfg.rope_theta, positions[:, None])
     x = params["embed"].to(bb.torch_dtype(cfg.dtype))[token.long()[:, None]]
     for lp in layers:
@@ -281,3 +285,10 @@ def decode_hidden(cfg: Lfm2Config, params: Params, layers: List[Params], token: 
 
 def conv_state_shape(cfg: Lfm2Config, batch: int) -> Tuple[int, ...]:
     return (len(cfg.conv_layers), batch, cfg.conv_kernel - 1, cfg.hidden_size)
+
+
+def state_shapes(cfg: Lfm2Config, n_slots: int) -> Dict[str, Tuple[tuple, torch.dtype]]:
+    """Device state beside the KV cache: the conv state and the expert
+    counts [Lm, 2, E] (see `runtime/batching.SlotState`)."""
+    return {"conv": (conv_state_shape(cfg, n_slots), bb.torch_dtype(cfg.dtype)),
+            "expert_rows": ((cfg.n_moe_layers, 2, cfg.n_experts), torch.int64)}

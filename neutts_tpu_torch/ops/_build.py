@@ -6,7 +6,8 @@ build takes seconds). The libraries go to `neutts_tpu_torch/_build/`, named
 after a hash of the source, the shared headers and the flags, so an edited
 source is rebuilt and an unchanged one is reused. All missing libraries of
 the Qwen2 block's kernels are built at once, one `nvcc` process per source,
-started together; the expert kernel (`MOE_SOURCES`) alone, at its first use.
+started together; the expert and latent-attention kernels (`LAZY_SOURCES`)
+each alone, at its first use.
 
 Nothing here runs at import time: the first kernel launch builds what it
 needs. `launches` counts, per kernel, the launches made through the
@@ -32,8 +33,9 @@ SOURCES = (
     "decode_attention.cu", "prefill_attention.cu", "w8a8.cu", "staged_attention.cu",
     "slot_copy.cu",
 )
-# built alone at first use, so that a model without routed experts never waits for it
-MOE_SOURCES = ("moe.cu",)
+# built alone at first use, so that a model without routed experts or latent
+# attention never waits for them
+LAZY_SOURCES = ("moe.cu", "mla_decode.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -54,6 +56,7 @@ launches: Dict[str, int] = {
     "scatter_prefill": 0,
     "scatter_prefill4": 0,
     "moe_experts": 0,  # one call: the gate/up and the down kernel of csrc/moe.cu
+    "mla_decode": 0,
 }
 
 # dtype codes of csrc/common.cuh; DT_I4 marks a cache of packed int4 pairs
@@ -124,7 +127,7 @@ def library(src: str) -> ctypes.CDLL:
     if lib is None:
         path = _lib_path(src)
         if not path.exists():
-            build_all(MOE_SOURCES if src in MOE_SOURCES else SOURCES)
+            build_all((src,) if src in LAZY_SOURCES else SOURCES)
         lib = ctypes.CDLL(str(path))
         _libs[src] = lib
     return lib

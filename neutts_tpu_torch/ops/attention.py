@@ -20,6 +20,14 @@ launches the kernel (or raises).
 * `scatter_prefill` / `scatter_prefill4` — write an admission group's
   prompt K/V into the cache rows `slots`, slots [0, Lp), first occurrence
   of each slot only, in place.
+* `mla_decode_staged` — the serving decode of absorbed multi-head latent
+  attention (`csrc/mla_decode.cu`, port-only): 16 query heads over the
+  int8 latent cache's settled rows [pad, base) plus the staging columns
+  [0, step].
+
+A latent cache (`backbone.KVCache` in latent mode) has one buffer: its
+reconcile and admission write take all_v, v_scale and the staging V as
+None and move the K buffer alone, through the same kernels.
 
 An int4 cache is told from an int8 one as the JAX package tells it: its
 scale rows are twice as long as its byte axis (`is_int4`).
@@ -195,7 +203,7 @@ def _decode_attention_cuda(q, all_k, all_v, layer, lens, pad, k_scale, v_scale):
 
 # --- prefill -----------------------------------------------------------------
 
-PREFILL_BF16_D = (16, 32, 64, 128)  # head widths of the bf16 tensor-core kernel
+PREFILL_BF16_D = (16, 32, 64, 128, 192)  # head widths of the bf16 tensor-core kernel
 
 
 def prefill_tile(G: int, D: int, dtype) -> dict:
@@ -326,15 +334,21 @@ def _check_staging(name, all_k, all_v, k_scale, v_scale, stag_k, stag_v, stag_ks
     L, B, T, KD = all_k.shape
     T = 2 * T if is_int4(all_k, k_scale) else T
     S = stag_k.shape[2]
-    if all_v.shape != all_k.shape or stag_k.shape != (L, B, S, KD) or stag_v.shape != stag_k.shape:
+    if _one_buffer(all_v, v_scale, stag_v, stag_vs) != (all_v is None):
+        raise ValueError(f"{name}: a latent cache takes all_v, v_scale, stag_v and stag_vs "
+                         "as None together")
+    if (stag_k.shape != (L, B, S, KD) or all_v is not None and (
+            all_v.shape != all_k.shape or stag_v.shape != stag_k.shape)):
         raise ValueError(f"{name}: cache {tuple(all_k.shape)}, staging {tuple(stag_k.shape)}")
     if not 0 < S <= SEG_PAD:
         raise ValueError(f"{name}: {S} staging columns, at most SEG_PAD={SEG_PAD}")
     for t in (all_k, all_v, stag_k, stag_v):
-        if t.dtype != torch.int8:
+        if t is not None and t.dtype != torch.int8:
             raise TypeError(f"{name}: cache and staging values must be int8, got {t.dtype}")
     for t, shape in ((k_scale, (L, B, T)), (v_scale, (L, B, T)), (stag_ks, (L, B, SEG_PAD)),
                      (stag_vs, (L, B, SEG_PAD))):
+        if t is None:
+            continue
         if t.dtype != torch.float32 or t.shape != shape:
             raise ValueError(f"{name}: scales must be f32 {list(shape)}, got {t.dtype} "
                              f"{list(t.shape)}")
@@ -393,6 +407,11 @@ def _check_copy_buffers(name: str, KD: int, *tensors) -> None:
     _check_aligned(name, *tensors)
 
 
+def _one_buffer(*v_buffers) -> bool:
+    """True when every V buffer given is None (a latent cache)."""
+    return all(t is None for t in v_buffers)
+
+
 def _check_reconcile(name, all_k, all_v, k_scale, v_scale, stag_k, stag_v, stag_ks, stag_vs,
                      base, active):
     """The CUDA reconcile wrappers' checks; returns (L, B, T, KD, S)."""
@@ -412,7 +431,8 @@ def reconcile_segment(all_k, all_v, k_scale, v_scale, stag_k, stag_v, stag_ks, s
     """Copy one segment's staging (values [L, B, S, K*D], scales
     [L, B, SEG_PAD]) into cache slots [base[b], base[b] + S) of every row b
     with active[b], IN PLACE; other rows stay untouched. Columns outside
-    [0, T) are dropped. Returns (all_k, all_v, k_scale, v_scale)."""
+    [0, T) are dropped. A latent cache passes the four V buffers as None.
+    Returns (all_k, all_v, k_scale, v_scale)."""
     args = (all_k, all_v, k_scale, v_scale, stag_k, stag_v, stag_ks, stag_vs, base, active)
     if all_k.device.type == "cpu":
         return reconcile_segment_plain(*args)
@@ -430,9 +450,10 @@ def reconcile_segment_plain(all_k, all_v, k_scale, v_scale, stag_k, stag_v, stag
     rows = torch.arange(B, device=base.device)[:, None].expand(B, S)[hit]
     c = cols[hit]
     all_k[:, rows, c] = stag_k[:, hit]
-    all_v[:, rows, c] = stag_v[:, hit]
     k_scale[:, rows, c] = stag_ks[:, :, :S][:, hit]
-    v_scale[:, rows, c] = stag_vs[:, :, :S][:, hit]
+    if all_v is not None:
+        all_v[:, rows, c] = stag_v[:, hit]
+        v_scale[:, rows, c] = stag_vs[:, :, :S][:, hit]
     return all_k, all_v, k_scale, v_scale
 
 
@@ -447,9 +468,9 @@ def _reconcile_segment_cuda(all_k, all_v, k_scale, v_scale, stag_k, stag_v, stag
     fn = _build.bind("slot_copy.cu", "neutts_reconcile_segment", 10, 6)
     with torch.cuda.device(all_k.device):
         rc = fn(
-            stag_k.data_ptr(), stag_v.data_ptr(), stag_ks.data_ptr(), stag_vs.data_ptr(),
-            base.data_ptr(), active.data_ptr(), all_k.data_ptr(), all_v.data_ptr(),
-            k_scale.data_ptr(), v_scale.data_ptr(), L, B, T, S, KD, SEG_PAD,
+            stag_k.data_ptr(), _build.ptr(stag_v), stag_ks.data_ptr(), _build.ptr(stag_vs),
+            base.data_ptr(), active.data_ptr(), all_k.data_ptr(), _build.ptr(all_v),
+            k_scale.data_ptr(), _build.ptr(v_scale), L, B, T, S, KD, SEG_PAD,
             _build.stream_of(all_k.device),
         )
     _build.check(rc, name)
@@ -478,8 +499,8 @@ def scatter_prefill(all_k, all_v, k_scale, v_scale, new_k, new_v, new_ks, new_vs
     """Admission-group cache write, IN PLACE: for each admission row j with
     primary[j], prompt values new_k/new_v [L, G, Lp, K*D] (int8) and scales
     new_ks/new_vs [L, G, Lp] (f32) land in cache row slots[j] (in [0, B)),
-    slots [0, Lp). Rows not named stay untouched. Returns (all_k, all_v,
-    k_scale, v_scale)."""
+    slots [0, Lp). Rows not named stay untouched. A latent cache passes the
+    four V buffers as None. Returns (all_k, all_v, k_scale, v_scale)."""
     args = (all_k, all_v, k_scale, v_scale, new_k, new_v, new_ks, new_vs, slots, primary)
     if all_k.device.type == "cpu":
         return scatter_prefill_plain(*args)
@@ -493,9 +514,10 @@ def scatter_prefill_plain(all_k, all_v, k_scale, v_scale, new_k, new_v, new_ks, 
     n = min(new_k.shape[2], all_k.shape[2])
     rows = slots[primary].long()
     all_k[:, rows, :n] = new_k[:, primary, :n]
-    all_v[:, rows, :n] = new_v[:, primary, :n]
     k_scale[:, rows, :n] = new_ks[:, primary, :n]
-    v_scale[:, rows, :n] = new_vs[:, primary, :n]
+    if all_v is not None:
+        all_v[:, rows, :n] = new_v[:, primary, :n]
+        v_scale[:, rows, :n] = new_vs[:, primary, :n]
     return all_k, all_v, k_scale, v_scale
 
 
@@ -510,14 +532,20 @@ def _check_scatter(name, pack, all_k, all_v, k_scale, v_scale, new_k, new_v, new
     L, B, T, KD = all_k.shape
     G, Lp = new_ks.shape[1], new_ks.shape[2]
     T *= pack
-    if (all_v.shape != all_k.shape or new_k.shape != (L, G, Lp // pack, KD)
-            or new_v.shape != new_k.shape):
+    if _one_buffer(all_v, v_scale, new_v, new_vs) != (all_v is None) or (
+            all_v is None and pack != 1):
+        raise ValueError(f"{name}: an int8 latent cache takes all_v, v_scale, new_v and "
+                         "new_vs as None together")
+    if (new_k.shape != (L, G, Lp // pack, KD) or all_v is not None and (
+            all_v.shape != all_k.shape or new_v.shape != new_k.shape)):
         raise ValueError(f"{name}: cache {tuple(all_k.shape)}, prompt K/V {tuple(new_k.shape)}")
     for t in (all_k, all_v, new_k, new_v):
-        if t.dtype != torch.int8:
+        if t is not None and t.dtype != torch.int8:
             raise TypeError(f"{name}: values must be int8, got {t.dtype}")
     for t, shape in ((k_scale, (L, B, T)), (v_scale, (L, B, T)), (new_ks, (L, G, Lp)),
                      (new_vs, (L, G, Lp))):
+        if t is None:
+            continue
         if t.dtype != torch.float32 or t.shape != shape:
             raise ValueError(f"{name}: scales must be f32 {list(shape)}")
     if slots.shape != (G,) or primary.shape != (G,) or primary.dtype != torch.bool:
@@ -535,9 +563,9 @@ def _scatter_prefill_cuda(all_k, all_v, k_scale, v_scale, new_k, new_v, new_ks, 
     fn = _build.bind("slot_copy.cu", "neutts_scatter_prefill", 10, 6)
     with torch.cuda.device(all_k.device):
         rc = fn(
-            new_k.data_ptr(), new_v.data_ptr(), new_ks.data_ptr(), new_vs.data_ptr(),
-            slots.data_ptr(), primary.data_ptr(), all_k.data_ptr(), all_v.data_ptr(),
-            k_scale.data_ptr(), v_scale.data_ptr(), L, G, B, T, Lp, KD,
+            new_k.data_ptr(), _build.ptr(new_v), new_ks.data_ptr(), _build.ptr(new_vs),
+            slots.data_ptr(), primary.data_ptr(), all_k.data_ptr(), _build.ptr(all_v),
+            k_scale.data_ptr(), _build.ptr(v_scale), L, G, B, T, Lp, KD,
             _build.stream_of(all_k.device),
         )
     _build.check(rc, name)
@@ -664,3 +692,104 @@ def _scatter_prefill4_cuda(all_k, all_v, k_scale, v_scale, new_k, new_v, new_ks,
     _build.check(rc, name)
     _build.launches[name] += 1
     return all_k, all_v, k_scale, v_scale
+
+
+# --- multi-head latent attention: staged decode -----------------------------------
+
+MLA_HEADS, MLA_ROW, MLA_VALUE = 16, 576, 512  # the shape csrc/mla_decode.cu takes
+_mla_ws: dict = {}
+
+
+def mla_decode_staged(q, lat, lat_scale, stag, stag_scale, layer: int, step: int, base, pad,
+                      scale: float, v_dim: int):
+    """Absorbed multi-head latent attention over the settled latent rows
+    [pad, base) of layer `layer` plus the staging columns [0, step] of the
+    current segment, in one softmax.
+
+    q [B, H, R] (per head: the absorbed latent query, then the rotary
+    query; f32/bf16); lat int8 [L, B, T, R] with f32 lat_scale [L, B, T]
+    (one scale a token over its row); stag int8 [L, B, S, R] with f32
+    stag_scale [L, B, SEG_PAD] (columns [0, S) live); base/pad [B] int32.
+    score = scale x (q . row); the output is the probability-weighted sum of
+    the rows' first v_dim values: [B, H, v_dim] in q's dtype. The CUDA
+    kernel takes bf16 q at H 16, R 576, v_dim 512."""
+    args = (q, lat, lat_scale, stag, stag_scale, layer, step, base, pad, scale, v_dim)
+    if q.device.type == "cpu":
+        return mla_decode_staged_plain(*args)
+    if q.device.type != "cuda":
+        raise ValueError(f"mla_decode_staged: unsupported device {q.device}")
+    return _mla_decode_staged_cuda(*args)
+
+
+def mla_decode_staged_plain(q, lat, lat_scale, stag, stag_scale, layer: int, step: int, base,
+                            pad, scale: float, v_dim: int):
+    """The same function step by step: dequantize the rows, concatenate the
+    staging after the cache, mask to [pad, base) u [T, T + step], f32
+    scores, softmax and the sum over the rows' first v_dim values."""
+    S = stag.shape[2]
+    rows = lat[layer].float() * lat_scale[layer][..., None]  # [B, T, R]
+    T = rows.shape[1]
+    st = stag[layer].float() * stag_scale[layer][:, :S, None]
+    rows = torch.cat([rows, st], dim=1)
+    t = torch.arange(T + S, device=q.device)
+    valid = ((t[None, :] < base[:, None]) & (t[None, :] >= pad[:, None])) | (
+        (t[None, :] >= T) & (t[None, :] <= T + step))  # [B, T + S]
+    s = torch.einsum("bhr,btr->bht", q.float(), rows) * scale
+    s = torch.where(valid[:, None, :], s, torch.tensor(MASK_VALUE, device=q.device))
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bht,btv->bhv", p, rows[..., :v_dim]).to(q.dtype)
+
+
+def _mla_workspace(device, stream: int, B: int, nparts: int):
+    """The f32 partials and zeroed per-row counters of the MLA kernel's
+    split-K merge, made once per (device, stream, B, partials): each launch
+    leaves the counters at 0 (see `_split_workspace`)."""
+    key = (device.index, stream, B, nparts)
+    ws = _mla_ws.get(key)
+    if ws is None:
+        ws = _mla_ws[key] = (
+            torch.empty(B * nparts * (MLA_HEADS * MLA_VALUE + 2 * MLA_HEADS),
+                        dtype=torch.float32, device=device),
+            torch.zeros(B, dtype=torch.int32, device=device),
+        )
+    return ws
+
+
+def _mla_decode_staged_cuda(q, lat, lat_scale, stag, stag_scale, layer, step, base, pad, scale,
+                            v_dim):
+    name = "mla_decode"
+    _build.check_no_grad(name, q, lat, lat_scale, stag, stag_scale)
+    _build.check_inputs(name, q, lat, lat_scale, stag, stag_scale, base, pad)
+    _check_int32(name, base, pad)
+    B, H, R = q.shape
+    L, Bc, T, Rc = lat.shape
+    S = stag.shape[2]
+    if (H, R, v_dim) != (MLA_HEADS, MLA_ROW, MLA_VALUE) or q.dtype != torch.bfloat16:
+        raise ValueError(f"{name}: the kernel takes bf16 q [B, {MLA_HEADS}, {MLA_ROW}] and "
+                         f"v_dim {MLA_VALUE}, got {q.dtype} {tuple(q.shape)}, v_dim {v_dim}")
+    if (Bc, Rc) != (B, R) or stag.shape != (L, B, S, R) or not 0 < S <= SEG_PAD:
+        raise ValueError(f"{name}: q {tuple(q.shape)}, cache {tuple(lat.shape)}, staging "
+                         f"{tuple(stag.shape)}")
+    if lat.dtype != torch.int8 or stag.dtype != torch.int8:
+        raise TypeError(f"{name}: latent rows must be int8")
+    for t, shape in ((lat_scale, (L, B, T)), (stag_scale, (L, B, SEG_PAD))):
+        if t.dtype != torch.float32 or t.shape != shape:
+            raise ValueError(f"{name}: scales must be f32 {list(shape)}")
+    if base.shape != (B,) or pad.shape != (B,) or not 0 <= layer < L or not 0 <= step < S:
+        raise ValueError(f"{name}: base/pad [{B}], layer {layer} of {L}, step {step} of {S}")
+    _check_aligned(name, lat, stag)
+    if q.data_ptr() % 4:
+        raise ValueError(f"{name}: q must be 4-byte aligned")
+    out = torch.empty((B, H, v_dim), dtype=q.dtype, device=q.device)
+    stream = _build.stream_of(q.device)
+    nsplit = decode_splits(B, 1, T, q.device)  # + one partial for the staging columns
+    ws, counters = _mla_workspace(q.device, stream, B, nsplit + 1)
+    fn = _build.bind("mla_decode.cu", "neutts_mla_decode", 10, 7, 1)
+    with torch.cuda.device(q.device):
+        rc = fn(q.data_ptr(), lat.data_ptr(), lat_scale.data_ptr(), stag.data_ptr(),
+                stag_scale.data_ptr(), base.data_ptr(), pad.data_ptr(), out.data_ptr(),
+                ws.data_ptr(), counters.data_ptr(), B, T, S, SEG_PAD, int(layer), int(step),
+                nsplit, float(scale) * 1.4426950408889634, stream)
+    _build.check(rc, name)
+    _build.launches[name] += 1
+    return out

@@ -1,5 +1,6 @@
-"""Routed experts of an LFM2-MoE layer: the router, the sort of the
-(token, expert) pairs by expert, and the grouped SwiGLU expert product.
+"""Routed experts of an LFM2-MoE or Moonlight layer: the router, the sort
+of the (token, expert) pairs by expert, and the grouped SwiGLU expert
+product.
 
 `grouped_swiglu` has a CUDA kernel (`csrc/moe.cu`) and a plain PyTorch
 version of the same function. The wrapper picks by the tensors' device
@@ -12,10 +13,12 @@ on a CUDA device (the per-expert counts and offsets stay on the device), so
 a serving segment that routes tokens can be captured as a CUDA graph. Only
 the plain version reads the offsets, on the CPU.
 
-Routing (LiquidAI's LFM2-MoE router): scores = sigmoid(h @ router) in f32;
-the top-k experts of score + expert bias; the weights are the chosen
-experts' scores without the bias, normalised to sum 1 (LFM2-8B-A1B's
-`norm_topk_prob`, at its `routed_scaling_factor` of 1).
+Routing (LiquidAI's LFM2-MoE router, and DeepSeek-V3's `noaux_tc` with one
+group, which Moonlight takes): scores = sigmoid(h @ router) in f32; the
+top-k experts of score + expert bias; the weights are the chosen experts'
+scores without the bias, normalised to sum 1 (`norm_topk_prob`) and
+multiplied by the `routed_scaling_factor` (1 for LFM2-8B-A1B, 2.446 for
+Moonlight-16B-A3B).
 """
 
 from __future__ import annotations
@@ -34,13 +37,15 @@ DOWN_COLS = 128
 K_STEP = 32
 
 
-def route(logits: torch.Tensor, expert_bias, top_k: int):
-    """Router logits [T, E] f32 -> (experts [T, k] int64, weights [T, k] f32)."""
+def route(logits: torch.Tensor, expert_bias, top_k: int, scale: float = 1.0):
+    """Router logits [T, E] f32 -> (experts [T, k] int64, weights [T, k] f32):
+    the normalised weights times `scale` (the routed scaling factor)."""
     scores = torch.sigmoid(logits.float())
     choice = scores if expert_bias is None else scores + expert_bias.float()
     idx = torch.topk(choice, top_k, dim=-1).indices
     w = torch.gather(scores, 1, idx)
-    return idx, w / (w.sum(dim=-1, keepdim=True) + 1e-20)
+    w = w / (w.sum(dim=-1, keepdim=True) + 1e-20)
+    return idx, w if scale == 1.0 else w * scale
 
 
 def sort_pairs(idx: torch.Tensor, n_experts: int):

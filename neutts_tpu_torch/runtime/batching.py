@@ -41,14 +41,25 @@ segment. An admission is one graph launch too (`_AdmitGraph`), one graph
 per state and shape (G rows, bucket Lp) over static inputs, all of a
 state's admission graphs in one memory pool.
 
-An LFM2-MoE config (`config.Lfm2Config`, `models/lfm2.py`) keeps two kinds
-of state side by side: the KV cache of its attention layers alone (the
-model's attention index is the cache layer) and each conv layer's state
-(`SlotState.conv`), which admission writes, every step reads and replaces
-in place, and retirement zeroes. Its decode routes every row's token over
-the experts on the device; `SlotState.expert_rows` counts the rows each
-expert took in each MoE layer and the steps in which it took any, in place,
-inside the captured segment too.
+The model family is one block interface, picked once per config
+(`block`): `models/qwen2.py` (the Qwen2 block of `models/backbone.py`),
+`models/lfm2.py` and `models/moonlight.py` each give `prepare_params`,
+`layer_params`, `state_shapes` (device state beside the cache, made by
+`SlotState.create`), `prefill_hidden` and `decode_hidden`, called alike.
+  * An LFM2-MoE config (`config.Lfm2Config`) keeps two kinds of state side
+    by side: the KV cache of its attention layers alone (the model's
+    attention index is the cache layer) and each conv layer's state
+    (`SlotState.conv`), which admission writes, every step reads and
+    replaces in place, and retirement zeroes.
+  * A Moonlight config (`config.MoonlightConfig`) keeps a latent cache: one
+    int8 buffer of 576-value rows with a scale a token, no V buffer
+    (`backbone.KVCache` latent mode). Its staging, reconcile and admission
+    write move that one buffer, and its staged attention is the MLA kernel
+    (`ops/attention.mla_decode_staged`).
+  * Both route every row's token over their experts on the device;
+    `SlotState.expert_rows` counts the rows each expert took in each MoE
+    layer and the steps in which it took any, in place, inside the
+    captured segment too.
 
 Spans (`neutts_tpu_torch.utils`): each eager step is a `decode.step`; a
 replay and a capture, of a segment or an admission, are spans of
@@ -63,9 +74,10 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from neutts_tpu_torch.config import BackboneConfig, SamplingConfig, round_up
+from neutts_tpu_torch.config import (BackboneConfig, Lfm2Config, MoonlightConfig, SamplingConfig,
+                                     round_up)
 from neutts_tpu_torch.models import backbone as bb
-from neutts_tpu_torch.models import lfm2
+from neutts_tpu_torch.models import lfm2, moonlight, qwen2
 from neutts_tpu_torch.ops import attention as attn_ops
 from neutts_tpu_torch.ops import sampling as smp
 from neutts_tpu_torch.runtime import graph
@@ -84,6 +96,16 @@ _MAX_BUCKET_GAP = max(b - a for a, b in zip((0,) + PROMPT_BUCKETS[:-1], PROMPT_B
 CACHE_SLACK = round_up(_MAX_BUCKET_GAP - 1 + attn_ops.SEG_PAD, 128)  # 256
 
 
+# the block module of each config family; any other config runs the Qwen2 block
+_BLOCKS = ((Lfm2Config, lfm2), (MoonlightConfig, moonlight))
+
+
+def block(cfg: BackboneConfig):
+    """The model family's module behind the block interface (see the module
+    docstring), chosen by the config's class."""
+    return next((mod for kind, mod in _BLOCKS if isinstance(cfg, kind)), qwen2)
+
+
 def slot_cache_len(cfg: BackboneConfig) -> int:
     """Physical per-slot cache length of the serving path: the logical
     context plus the reconcile slack, a multiple of BLOCK_T (2304 at Air),
@@ -98,16 +120,17 @@ def segment_align(cache: bb.KVCache) -> int:
 
 @dataclasses.dataclass
 class SlotState:
-    cache: bb.KVCache  # [L, B, T, K*D] x2 (+ scales; int4: packed, see bb.KVCache)
+    cache: bb.KVCache  # [L, B, T, K*D] x2 (+ scales; int4: packed; latent: one buffer)
     token: torch.Tensor  # [B] int32 next input token per slot
     lens: torch.Tensor  # [B] int32 cache slots used (left pad + real tokens)
     pad: torch.Tensor  # [B] int32 left pad per slot (attend t >= pad)
     prompt_lens: torch.Tensor  # [B] int32 padded prompt portion (min_new bookkeeping)
     active: torch.Tensor  # [B] bool decoding (not empty, not finished)
     generator: torch.Generator  # sampling noise (the JAX state's `key`)
-    # LFM2: [Lc, B, K-1, D] conv state, and [Lm, 2, E] int64 counts since the
-    # last zeroing: [:, 0] the decode rows routed to each expert, [:, 1] the
-    # decode steps in which it took any (None for the Qwen2 block)
+    # the block's state (`block(cfg).state_shapes`): LFM2's [Lc, B, K-1, D]
+    # conv state, and LFM2's and Moonlight's [Lm, 2, E] int64 counts since
+    # the last zeroing: [:, 0] the decode rows routed to each expert, [:, 1]
+    # the decode steps in which it took any (None where the block has none)
     conv: Optional[torch.Tensor] = None
     expert_rows: Optional[torch.Tensor] = None
     # captured staged segments by step count (CUDA devices; see `_SegmentGraph`)
@@ -121,12 +144,8 @@ class SlotState:
     def create(cfg: BackboneConfig, n_slots: int, device, seed: int = 0) -> "SlotState":
         dev = torch.device(device)
         zeros = lambda dt: torch.zeros((n_slots,), dtype=dt, device=dev)  # noqa: E731
-        hybrid = {}
-        if lfm2.is_lfm2(cfg):
-            hybrid = {"conv": torch.zeros(lfm2.conv_state_shape(cfg, n_slots),
-                                          dtype=bb.torch_dtype(cfg.dtype), device=dev),
-                      "expert_rows": torch.zeros((cfg.n_moe_layers, 2, cfg.n_experts),
-                                                 dtype=torch.int64, device=dev)}
+        hybrid = {name: torch.zeros(shape, dtype=dt, device=dev)
+                  for name, (shape, dt) in block(cfg).state_shapes(cfg, n_slots).items()}
         return SlotState(
             cache=bb.KVCache.create(cfg, n_slots, max_len=slot_cache_len(cfg), device=dev),
             token=zeros(torch.int32),
@@ -139,31 +158,14 @@ class SlotState:
         )
 
 
-def _layers(cfg: BackboneConfig, params) -> list:
-    """Each layer's weights, as the model's decode takes them."""
-    if lfm2.is_lfm2(cfg):
-        return lfm2.layer_params(cfg, params)
-    return [bb.layer_params(params, l) for l in range(cfg.n_layers)]
-
-
 def _prefill_hidden(cfg: BackboneConfig, params, state: SlotState, tokens, true_lens, rows,
                     store):
-    """The model's prefill; an LFM2 conv state goes to the state's `rows`."""
-    if lfm2.is_lfm2(cfg):
-        def conv_store(i, st):
-            state.conv[i, rows] = st
+    """The model's prefill; a recurrent state (LFM2's conv state) goes to
+    the state's `rows`."""
+    def state_store(i, st):
+        state.conv[i, rows] = st
 
-        return lfm2.prefill_hidden(cfg, params, tokens, true_lens, store, conv_store)
-    return bb.prefill_hidden(cfg, params, tokens, true_lens, store)
-
-
-def _decode_hidden(cfg: BackboneConfig, params, layers, state: SlotState, token, positions,
-                   attend):
-    """The model's decode step over `state`'s conv state and expert counts."""
-    if lfm2.is_lfm2(cfg):
-        return lfm2.decode_hidden(cfg, params, layers, token, positions, attend, state.conv,
-                                  state.expert_rows)
-    return bb.decode_hidden(cfg, params, layers, token, positions, attend)
+    return block(cfg).prefill_hidden(cfg, params, tokens, true_lens, store, state_store)
 
 
 @torch.inference_mode()
@@ -207,7 +209,8 @@ def _admit(cfg, sampling, eos_id, params, state: SlotState, tokens, true_lens, s
     src = torch.where(slots[:, None] == slots[None, :], ar[None, :], G).amin(dim=1)
     primary = src == ar
     rows = slots.long()
-    L, KD = cfg.n_cache_layers, cfg.kv_dim
+    L, KD = cache.k.shape[0], cache.k.shape[-1]
+    two = not cache.latent  # K and V, or a latent cache's one buffer
     if cache.int4:
         # stack packed K/V [L, G, Lp/2, KD], token-order scales [L, G, Lp] and
         # last-token values [L, G, KD], then ONE scatter_prefill4
@@ -234,9 +237,9 @@ def _admit(cfg, sampling, eos_id, params, state: SlotState, tokens, true_lens, s
         # stack the layers' quantized K/V [L, G, Lp, KD], then ONE scatter_prefill
         new = bb.KVCache(
             k=torch.empty((L, G, Lp, KD), dtype=torch.int8, device=dev),
-            v=torch.empty((L, G, Lp, KD), dtype=torch.int8, device=dev),
+            v=torch.empty((L, G, Lp, KD), dtype=torch.int8, device=dev) if two else None,
             k_scale=torch.empty((L, G, Lp), dtype=torch.float32, device=dev),
-            v_scale=torch.empty((L, G, Lp), dtype=torch.float32, device=dev))
+            v_scale=torch.empty((L, G, Lp), dtype=torch.float32, device=dev) if two else None)
         h = _prefill_hidden(cfg, params, state, tokens, true_lens, rows,
                             lambda l, k, v: bb.write_kv(new, l, (), k, v))
         attn_ops.scatter_prefill(cache.k, cache.v, cache.k_scale, cache.v_scale,
@@ -333,28 +336,35 @@ def _staged_segment(cfg, sampling, eos_id, n_steps, params, state, traced):
     quantize = bb.quantize_kv4 if cache.int4 else bb.quantize_kv
     B = state.token.shape[0]
     dev = state.token.device
-    L, S, KD = cfg.n_cache_layers, n_steps, cfg.kv_dim
+    L, S, KD = cache.k.shape[0], n_steps, cache.k.shape[-1]
+    two = not cache.latent  # K and V, or a latent cache's one buffer
     base = state.lens  # settled length per row, constant over the segment
     active0 = state.active  # rows reconciled at segment end
     stag = bb.KVCache(  # staging: [L, B, S, KD] values, [L, B, SEG_PAD] scales
         k=torch.zeros((L, B, S, KD), dtype=torch.int8, device=dev),
-        v=torch.zeros((L, B, S, KD), dtype=torch.int8, device=dev),
+        v=torch.zeros((L, B, S, KD), dtype=torch.int8, device=dev) if two else None,
         k_scale=torch.zeros((L, B, attn_ops.SEG_PAD), dtype=torch.float32, device=dev),
-        v_scale=torch.zeros((L, B, attn_ops.SEG_PAD), dtype=torch.float32, device=dev))
+        v_scale=torch.zeros((L, B, attn_ops.SEG_PAD), dtype=torch.float32, device=dev)
+        if two else None)
     outs = torch.empty((B, S), dtype=torch.int32, device=dev)
-    layers = _layers(cfg, params)
+    blk = block(cfg)
+    layers = blk.layer_params(cfg, params)
     token, lens, active = state.token, state.lens, state.active
     for i in range(S):
         def attend(l, q, k, v, i=i):
             # write-then-attend: column i is written before the kernel reads [0, i]
             bb.write_kv(stag, l, (slice(None), i), k, v, quantize=quantize)
+            if cache.latent:
+                return attn_ops.mla_decode_staged(
+                    q, cache.k, cache.k_scale, stag.k, stag.k_scale, l, i, base, state.pad,
+                    cfg.softmax_scale, cfg.kv_lora_rank)
             return attn_ops.decode_attention_staged(
                 q, cache.k, cache.v, cache.k_scale, cache.v_scale, stag.k, stag.v,
                 stag.k_scale, stag.v_scale, l, i, base, state.pad)
 
         with span("decode.step") if traced else contextlib.nullcontext():
             # RoPE position: the real tokens before this one
-            h = _decode_hidden(cfg, params, layers, state, token, lens - state.pad, attend)
+            h = blk.decode_hidden(cfg, params, layers, token, lens - state.pad, attend, state)
             token, active, lens = _step_head(cfg, sampling, eos_id, params, state, h,
                                              lens + 1, active, lens, n_steps)
             outs[:, i] = token
@@ -372,8 +382,8 @@ _SLOT_INPUTS = ("token", "lens", "pad", "prompt_lens", "active")
 class _SlotGraph(graph.SegmentGraph):
     """A graph over a `SlotState`: static per-slot tensors of its own,
     copied in from each call's state (`_load`), and the state's cache and
-    generator, and an LFM2 state's conv state and expert counts, baked in
-    and written in place. Its `args` end with the params; `serves` tells
+    generator, and the block's conv state and expert counts, baked in and
+    written in place. Its `args` end with the params; `serves` tells
     whether a call may replay it."""
 
     def __init__(self, state: SlotState, *args, **attrs):
@@ -458,8 +468,8 @@ class _AdmitGraph(_SlotGraph):
 
 
 def _state_buffers(state: SlotState) -> tuple:
-    """The buffers a segment or an admission writes in place: the cache, an
-    LFM2 conv state and expert counts."""
+    """The buffers a segment or an admission writes in place: the cache, and
+    the block's conv state and expert counts."""
     cache = state.cache
     return tuple(getattr(cache, f.name) for f in dataclasses.fields(cache)) + (
         state.conv, state.expert_rows)
@@ -515,7 +525,8 @@ def _decode_steps_scatter(cfg, sampling, eos_id, n_steps, params, state):
     B = state.token.shape[0]
     ar = torch.arange(B, device=state.token.device)
     outs = torch.empty((B, n_steps), dtype=torch.int32, device=state.token.device)
-    layers = _layers(cfg, params)
+    blk = block(cfg)
+    layers = blk.layer_params(cfg, params)
     for i in range(n_steps):
         with span("decode.step"):
             write_at = torch.clamp(state.lens, max=cache.max_len - 1)  # [B] per-row write slot
@@ -529,8 +540,8 @@ def _decode_steps_scatter(cfg, sampling, eos_id, n_steps, params, state):
                 return attn_ops.decode_attention(q, cache.k, cache.v, l, lens_new, state.pad,
                                                  cache.k_scale, cache.v_scale)
 
-            h = _decode_hidden(cfg, params, layers, state, state.token, write_at - state.pad,
-                               attend)
+            h = blk.decode_hidden(cfg, params, layers, state.token, write_at - state.pad,
+                                  attend, state)
             state.token, state.active, state.lens = _step_head(
                 cfg, sampling, eos_id, params, state, h, lens_new, state.active, state.lens,
                 n_steps)

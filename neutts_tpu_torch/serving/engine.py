@@ -19,7 +19,8 @@ back through a pinned copy queued right after the segment, so the pipelined
 `run` overlaps the host's bookkeeping of segment N with the device's work on
 segment N+1.
 
-An LFM2-MoE config (`config.Lfm2Config`) is served the same way; its
+An LFM2-MoE or Moonlight config (`config.Lfm2Config`, `config.MoonlightConfig`)
+is served the same way, through the decode core's block interface; the
 per-expert row counts (`SlotState.expert_rows`) ride the segment's readback,
 and `stats["expert_load_peak"]` gives the busiest expert's decode rows over
 the mean, in percent (100 = even), averaged over the MoE layers.
@@ -129,7 +130,7 @@ class Engine:
         self.eos_id = eos_id
         self.n_slots = n_slots
         self.sampling = sampling or SamplingConfig()
-        params = bb.prepare_params(params, self.device)
+        params = batching.block(cfg).prepare_params(cfg, bb.prepare_params(params, self.device))
         # speech-constrained sampling gets the pre-sliced speech head: the
         # LM-head product and the top-k shrink to the speech vocabulary
         lay = cfg.layout

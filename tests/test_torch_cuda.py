@@ -68,6 +68,8 @@ def test_decode_attention_kernel(dev, dtype, mode, G, D):
     # other GQA groups of the tensor-core kernel: two 16-row slices per head
     # in a block (4), heads split over two blocks (12)
     (torch.bfloat16, 200, 4, 64), (torch.bfloat16, 200, 12, 64),
+    # multi-head latent attention's prefill: one query head a KV head, q/k 192
+    (torch.bfloat16, 512, 1, 192), (torch.bfloat16, 200, 1, 192),
 ])
 def test_prefill_attention_kernel(dev, dtype, S, G, D):
     """Pads 0, 3, S/2, S - 1 (one live row) and S (an all-pad row: zeros)."""
@@ -1371,3 +1373,162 @@ def test_readback_waits_on_the_tensors_own_card():
             assert rb.event is not None
             (got,) = rb.wait()
             assert (got == 7).all()
+
+
+def _mla_case(dev, B, T, S, base, pad, L=2, seed=0):
+    """Seeded int8 latent rows and staging at Moonlight's MLA widths (16
+    heads, rows of 576 = latent 512 + rotary 64) and a bf16 query."""
+    from neutts_tpu_torch.ops import attention as attn_ops
+
+    R = attn_ops.MLA_ROW
+    lat, lat_s = bb.quantize_kv(_randn(dev, L, B, T, R, seed=seed))
+    stag, ss = bb.quantize_kv(_randn(dev, L, B, S, R, seed=seed + 1))
+    stag_s = torch.zeros((L, B, attn_ops.SEG_PAD), device=dev)
+    stag_s[..., :S] = ss
+    q = _randn(dev, B, attn_ops.MLA_HEADS, R, dtype=torch.bfloat16, seed=seed + 2)
+    as_i32 = lambda v: torch.as_tensor(v, dtype=torch.int32, device=dev)  # noqa: E731
+    return q, lat, lat_s, stag, stag_s, as_i32(base), as_i32(pad)
+
+
+@pytest.mark.parametrize("B,T,step", [(256, 4352, 17), (5, 700, 0), (5, 700, 31)],
+                         ids=["cell_256x4352", "ragged_step0", "ragged_step31"])
+def test_mla_decode_kernel(dev, B, T, step):
+    """The MLA decode kernel against its plain version: the cell's shape (B
+    256, T 4,352, 16 heads, live lengths spread over the cache) and ragged
+    rows (empty, a pad, lengths off the 64-token tile, the whole cache).
+    Both products run on bf16 operands: the int8 values convert exactly and
+    the probabilities (times the token's scale) round to bf16, so the
+    output differs from the f32 plain version by about one bf16 rounding of
+    its range (2e-2). The kernel is one wrapper call and bit-equal from run
+    to run."""
+    from neutts_tpu_torch.ops import attention as attn_ops
+
+    S = 32
+    if B == 256:
+        g = torch.Generator().manual_seed(1)
+        base = torch.randint(1, T - 2 * S, (B,), generator=g)
+        pad = (torch.rand(B, generator=g) * 100).long().clamp(max=base - 1)
+        base[:3], pad[:3] = torch.tensor([0, 1, T - S]), torch.tensor([0, 0, 0])
+    else:
+        base, pad = [0, 64, 65, 700, 300], [0, 0, 3, 0, 250]
+    case = _mla_case(dev, B, T, S, base, pad)
+    q, lat, lat_s, stag, stag_s, base_t, pad_t = case
+    args = (q, lat, lat_s, stag, stag_s, 1, step, base_t, pad_t, 192 ** -0.5, 512)
+    before = _build.launches["mla_decode"]
+    got = attn_ops.mla_decode_staged(*args)
+    assert _build.launches["mla_decode"] == before + 1 and got.shape == (B, 16, 512)
+    want = attn_ops.mla_decode_staged_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got.float()).all()
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2, atol=2e-2)
+    assert torch.equal(got, attn_ops.mla_decode_staged(*args))
+
+
+def test_latent_reconcile_and_scatter_exact(dev):
+    """The one-buffer mode of the reconcile (#3) and the admission write
+    (#4): the latent rows and their scales land where the plain versions
+    put them, byte for byte, and nothing else moves."""
+    from neutts_tpu_torch.ops import attention as attn_ops
+
+    L, B, T, S, R, G, Lp = 3, 6, 256, 32, 576, 3, 64
+    cache = torch.randint(-127, 128, (L, B, T, R), dtype=torch.int8, device=dev)
+    scale = _randn(dev, L, B, T)
+    stag = torch.randint(-127, 128, (L, B, S, R), dtype=torch.int8, device=dev)
+    stag_s = _randn(dev, L, B, attn_ops.SEG_PAD, seed=1)
+    base = torch.tensor([0, 5, 64, 200, 240, 3], dtype=torch.int32, device=dev)
+    active = torch.tensor([True, True, False, True, True, False], device=dev)
+    new = torch.randint(-127, 128, (L, G, Lp, R), dtype=torch.int8, device=dev)
+    new_s = _randn(dev, L, G, Lp, seed=2)
+    slots = torch.tensor([4, 1, 1], dtype=torch.int32, device=dev)
+    primary = torch.tensor([True, True, False], device=dev)
+    got = [cache.clone(), scale.clone()]
+    want = [cache.clone(), scale.clone()]
+    attn_ops.reconcile_segment(got[0], None, got[1], None, stag, None, stag_s, None, base, active)
+    attn_ops.reconcile_segment_plain(want[0], None, want[1], None, stag, None, stag_s, None,
+                                     base, active)
+    attn_ops.scatter_prefill(got[0], None, got[1], None, new, None, new_s, None, slots, primary)
+    attn_ops.scatter_prefill_plain(want[0], None, want[1], None, new, None, new_s, None, slots,
+                                   primary)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert not torch.equal(got[0], cache)
+
+
+def _moonlight_card_cfg():
+    """A small Moonlight the kernels take: MLA at the published widths (16
+    heads, latent 512 + rotary 64, nope 128, value 128), hidden 256, 1 dense
+    and 2 expert layers of 8 experts of 128 (top 2) and 1 shared, bf16, an
+    int8 latent cache."""
+    from neutts_tpu_torch import config
+
+    return config.MOONLIGHT_TINY.scaled(
+        hidden_size=256, n_heads=16, kv_lora_rank=512, qk_nope_head_dim=128,
+        qk_rope_head_dim=64, v_head_dim=128, intermediate_size=256, moe_intermediate_size=128,
+        dtype="bfloat16")
+
+
+def _moonlight_card_params(cfg, dev):
+    from neutts_tpu_torch.models import moonlight
+
+    raw = moonlight.init_params(cfg, seed=3, device=dev)
+    return bb.add_speech_head(cfg, moonlight.prepare_params(cfg, raw))
+
+
+def test_moonlight_segment_graph_matches_eager_staged(dev):
+    """Moonlight on the card: `decode_steps` (one capture, then replays)
+    against the eager `_decode_steps_staged` over four segments with a
+    retirement and admissions between them: tokens, lens, active, the
+    latent cache and its scales and the expert counts bit-equal; a replay
+    counts the MLA kernel's and the expert kernel's launches."""
+    from neutts_tpu_torch import config
+    from neutts_tpu_torch.runtime import batching
+    from neutts_tpu_torch.utils import TRACER
+
+    cfg = _moonlight_card_cfg()
+    lay = cfg.layout
+    eos = lay.speech_gen_end
+    params = _moonlight_card_params(cfg, dev)
+    scfg = config.SamplingConfig(greedy=True, min_new_tokens=4).constrained_to(lay)
+    S = 16
+    prompts = [[lay.speech_base + (7 * i + j) % 60 for j in range(5 + 3 * i)] for i in range(3)]
+
+    def fresh():
+        state = batching.SlotState.create(cfg, 4, dev, seed=5)
+        return _graph_admit(cfg, scfg, params, state, prompts, [0, 1, 2])
+
+    sA, sB = fresh(), fresh()
+    assert sA.cache.latent and sA.cache.k.shape[-1] == 576
+    with TRACER.on() as records:
+        for r in range(4):
+            if r == 2:
+                retire = torch.tensor([False, True, False, False], device=dev)
+                sA, sB = (batching.retire_slots(s, retire) for s in (sA, sB))
+                sA, sB = (_graph_admit(cfg, scfg, params, s, [prompts[0][::-1], prompts[2][:4]],
+                                       [1, 3]) for s in (sA, sB))
+            n0 = dict(_build.launches)
+            sA, outA = batching.decode_steps(cfg, scfg, eos, S, params, sA)
+            n1 = dict(_build.launches)
+            sB, outB = batching._decode_steps_staged(cfg, scfg, eos, S, params, sB)
+            for k, per_step in (("mla_decode", cfg.n_layers), ("moe_experts", cfg.n_moe_layers)):
+                assert n1[k] - n0[k] == _build.launches[k] - n1[k] == S * per_step, (r, k)
+            torch.cuda.synchronize()
+            assert torch.equal(outA, outB), r
+            for n in ("token", "lens", "active", "expert_rows"):
+                assert torch.equal(getattr(sA, n), getattr(sB, n)), (r, n)
+            for f in ("k", "k_scale"):
+                assert torch.equal(getattr(sA.cache, f), getattr(sB.cache, f)), (r, f)
+        names = [rec.name for rec in records]
+        assert names.count("decode.capture") == 1 and names.count("decode.replay") == 3
+
+
+def test_moonlight_admit_graph_matches_eager_admission(dev):
+    """Moonlight on the card: `_check_admit_graphs` over the latent cache,
+    with the prefill kernel at the q/k head of 192, the one-buffer
+    admission write and the expert kernel among the launches."""
+    from neutts_tpu_torch import config
+
+    cfg = _moonlight_card_cfg()
+    params = _moonlight_card_params(cfg, dev)
+    scfg = config.SamplingConfig(greedy=True, min_new_tokens=4).constrained_to(cfg.layout)
+    _check_admit_graphs(dev, cfg, scfg, params,
+                        ("prefill_attention", "scatter_prefill", "moe_experts"))
